@@ -1,0 +1,580 @@
+"""TUW gatherv/scatterv on PyTorch: plan tables on the host, slab kernels
+and peer-to-peer exchanges on the device.
+
+The port of the static-irregular mode of ``repro.core.jax_collectives``.
+Block sizes are known when the plan is built: the tree is built on the
+host and each of its merge rounds becomes one exchange step (or several,
+when bucketed or pipelined) whose pairs are disjoint sender->receiver
+edges.  Payloads within a step are padded to the step's largest transfer;
+rows are addressed with per-rank starts from int32 device tables, so every
+rank runs the same loop.  The paper's ordering invariant carries over:
+every payload is a consecutive rank range written at its global offset,
+so the root's buffer ends up in rank order with no reordering pass.
+
+Where the JAX executor runs under ``shard_map`` with ``lax.ppermute``, the
+port runs over a mesh (``repro_torch.core.mesh``): ``LocalMesh`` keeps
+every rank on the leading axis of one tensor, ``ProcessGroupMesh`` keeps
+one rank per process and exchanges with ``torch.distributed``.  The slab
+copies between exchanges are the kernels K1–K3 of
+``repro_torch.kernels.ragged_gather`` on CUDA tensors and their plain
+PyTorch versions on CPU tensors.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.ragged_gather import ops as slab_ops
+from repro_torch.kernels.ragged_gather import ref as slab_ref
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.metrics import REGISTRY as _OBS_REGISTRY
+
+from .pipeline import num_stages as _pipeline_num_stages
+from .pipeline import pipeline_rounds
+from .treegather import GatherTree, build_gather_tree
+
+# --------------------------------------------------------------------------
+# plan construction (host)
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class GathervPlan:
+    """Static schedule tables for the SPMD executor.
+
+    All tables are (rounds, p) int32; ``perms`` is a list of ppermute
+    permutations per round (possibly several per round when bucketed).
+    """
+
+    p: int
+    root: int
+    sizes: tuple[int, ...]
+    offsets: tuple[int, ...]       # global row offset of each block
+    total: int                     # sum(sizes)
+    cap: int                       # max(sizes): per-device input padding
+    buf_rows: int                  # total + spill padding
+    # one entry per ppermute call: (perm, payload_rows, send_start, recv_start,
+    # recv_valid) -- the *_start/_valid tables are (p,) int32
+    steps: tuple[tuple, ...]
+    tree_bytes_exact: int          # sum of true transfer sizes (paper cost)
+    tree_bytes_padded: int         # what the padded ppermutes actually move
+    segments: int = 1              # pipeline segment count S (1 = monolithic)
+    stage_ids: tuple[int, ...] = ()  # pipeline stage of each step (len(steps))
+    num_stages: int = 0            # R + S - 1 stages (R for S = 1)
+    wave_bin_ratio: float = 0.0    # payload-bin ratio (0 = fixed-count split)
+
+    @property
+    def padding_overhead(self) -> float:
+        """Relative padding cost of the slab data plane, as a fraction.
+
+        Every ppermute step carries one contiguous slab per pair, padded
+        to the LARGEST slab in its step group (static slab shapes) — never
+        the whole capacity buffer.  ``tree_bytes_padded`` sums those
+        per-step payloads over all pairs; ``tree_bytes_exact`` sums the
+        true slab sizes (the paper's linear cost).  The ratio minus one is
+        therefore the within-step padding waste only: 0.0 means every
+        slab in every step group was the same size.  ``bucket_rounds`` and
+        pipeline ``segments`` both shrink it by making step groups more
+        homogeneous.
+        """
+        if self.tree_bytes_exact == 0:
+            return 0.0
+        return self.tree_bytes_padded / self.tree_bytes_exact - 1.0
+
+
+def _legalize_round(transfers):
+    """Split one round's transfers into ppermute-legal waves.
+
+    An exchange step (``mesh.ppermute``, the port of ``lax.ppermute``)
+    needs unique sources AND unique destinations.  TUW merge rounds and composed global rounds satisfy that
+    by construction, but baseline trees the tuner may select do not (a
+    linear tree funnels every sender into the root in round 0) — those
+    serialize on the shared endpoint's port in the telephone model, which
+    is exactly what consecutive waves express.  Greedy first-fit preserves
+    the (size-sorted) order within a wave.
+    """
+    waves: list[tuple[set, set, list]] = []
+    for t in transfers:
+        src, dst = t[0], t[1]
+        for srcs, dsts, group in waves:
+            if src not in srcs and dst not in dsts:
+                srcs.add(src)
+                dsts.add(dst)
+                group.append(t)
+                break
+        else:
+            waves.append(({src}, {dst}, [t]))
+    return [group for _, _, group in waves]
+
+
+def _wave_groups(wave, bucket_rounds: int, wave_bin_ratio: float):
+    """Split one legalized wave's (size-sorted) transfers into step groups.
+
+    Two policies:
+
+    * ``wave_bin_ratio > 1`` — PAYLOAD-BINNED packing: walk the sorted
+      transfers and open a new group whenever a size exceeds
+      ``wave_bin_ratio`` times the current group's smallest member, i.e.
+      geometric size bins.  Every group's padded bytes are then at most
+      ``wave_bin_ratio`` times its exact bytes, so within-step padding is
+      BOUNDED on arbitrarily skewed size mixes — the fixed-count split
+      below has no such bound (one huge and many tiny transfers in the
+      same bucket still pad everything to the maximum).  Homogeneous
+      waves stay a single group, so uniform matrices pay nothing.
+    * otherwise — the legacy fixed-count split into up to
+      ``bucket_rounds`` equal-count buckets.
+    """
+    if wave_bin_ratio and wave_bin_ratio > 1.0:
+        groups: list[list] = []
+        cur: list = []
+        cur_min = 1
+        for t in wave:
+            if cur and t[2] > cur_min * wave_bin_ratio:
+                groups.append(cur)
+                cur = []
+            if not cur:
+                cur_min = max(1, t[2])
+            cur.append(t)
+        if cur:
+            groups.append(cur)
+        return groups
+    nb = min(bucket_rounds, len(wave))
+    return [[wave[i] for i in idx]
+            for idx in np.array_split(np.arange(len(wave)), nb)
+            if len(idx)]
+
+
+def _bucketed_steps(rounds, p: int, bucket_rounds: int,
+                    wave_bin_ratio: float = 0.0):
+    """Lower transfer rounds to ppermute step tables.
+
+    ``rounds``: list of rounds (or pipeline stages), each a list of
+    ``(src, dst, size, start)``.  Rounds with endpoint conflicts are first
+    split into permutation-legal waves (see ``_legalize_round``); each
+    wave then becomes ppermute steps per :func:`_wave_groups` — up to
+    ``bucket_rounds`` equal-count size buckets, or geometric payload bins
+    when ``wave_bin_ratio > 1`` (extra latency, bounded padding).
+    Returns ``(steps, exact, padded, max_payload, stage_ids)`` where
+    ``stage_ids[k]`` is the index of the round/stage step ``k`` lowered
+    from — the pipeline cost model groups steps by it.  The two split
+    policies are mutually exclusive: asking for both is a conflict, not
+    a composition, and raises.
+    """
+    if wave_bin_ratio and wave_bin_ratio > 1.0 and bucket_rounds > 1:
+        raise ValueError(
+            "bucket_rounds > 1 and wave_bin_ratio > 1 are alternative "
+            "wave-split policies; pass one or the other")
+    steps = []
+    stage_ids = []
+    exact = 0
+    padded = 0
+    max_payload = 1
+    for stage, rnd in enumerate(rounds):
+        transfers = sorted(rnd, key=lambda t: t[2])
+        if not transfers:
+            continue
+        for wave in _legalize_round(transfers):
+            for group in _wave_groups(wave, bucket_rounds, wave_bin_ratio):
+                payload = max(t[2] for t in group)
+                send_start = np.zeros(p, np.int32)
+                recv_start = np.zeros(p, np.int32)
+                recv_valid = np.zeros(p, np.int32)
+                perm = []
+                for src, dst, size, start in group:
+                    perm.append((src, dst))
+                    send_start[src] = start
+                    recv_start[dst] = start
+                    recv_valid[dst] = size
+                    exact += size
+                    padded += payload
+                steps.append((tuple(perm), int(payload), send_start,
+                              recv_start, recv_valid))
+                stage_ids.append(stage)
+                max_payload = max(max_payload, payload)
+    return tuple(steps), exact, padded, max_payload, tuple(stage_ids)
+
+
+def plan_gatherv(sizes, root: int, tree: GatherTree | None = None,
+                 bucket_rounds: int = 1, segments: int = 1,
+                 wave_bin_ratio: float = 0.0) -> GathervPlan:
+    """Build the SPMD schedule for a gatherv over ``p = len(sizes)`` devices.
+
+    ``bucket_rounds > 1`` splits each merge round's pairs into up to that
+    many size buckets, each its own ppermute: extra latency, less padding.
+    ``wave_bin_ratio > 1`` uses geometric payload bins instead (see
+    ``_wave_groups``): padded bytes stay within that factor of exact bytes
+    on arbitrarily skewed rounds.
+    ``segments > 1`` pipelines the schedule (``repro.core.pipeline``): the
+    flat row space is cut into that many global chunks and the chunk-``j``
+    piece of a round-``k`` transfer runs at stage ``k + j``, so each
+    ppermute carries ``~1/segments`` of the payload and rounds overlap
+    across segments in ``rounds + segments - 1`` stages.
+    """
+    sizes = tuple(int(s) for s in sizes)
+    p = len(sizes)
+    if tree is None:
+        tree = build_gather_tree(list(sizes), root=root)
+    assert tree.root == root and tree.p == p
+    for e in tree.edges:
+        if e.size > 0 and e.lo < 0:
+            raise ValueError(
+                f"tree {tree.name!r} has a non-contiguous transfer "
+                "(lo=-1): the zero-copy data plane needs consecutive "
+                "block-rank ranges")
+    offsets = tuple(int(x) for x in np.concatenate([[0], np.cumsum(sizes)[:-1]]))
+    total = int(sum(sizes))
+    cap = max(1, max(sizes))
+
+    by_round: dict[int, list] = {}
+    for e in tree.edges:
+        if e.size == 0:
+            continue  # paper: no actual communication for empty blocks
+        by_round.setdefault(e.round, []).append(e)
+    rounds = [
+        [(e.child, e.parent, e.size, offsets[e.lo]) for e in by_round[rnd]]
+        for rnd in sorted(by_round)
+    ]
+    n_rounds = len(rounds)
+    rounds = pipeline_rounds(rounds, segments, total)
+    steps, exact, padded, max_payload, stage_ids = _bucketed_steps(
+        rounds, p, bucket_rounds, wave_bin_ratio)
+    buf_rows = total + max(cap, max_payload)
+    return GathervPlan(p, root, sizes, offsets, total, cap, buf_rows,
+                       steps, exact, padded, segments=int(segments),
+                       stage_ids=stage_ids,
+                       num_stages=_pipeline_num_stages(n_rounds, segments),
+                       wave_bin_ratio=float(wave_bin_ratio))
+
+
+def _reversed_step_tables(plan: "GathervPlan") -> tuple[tuple, ...]:
+    """Scatter step tables: the gather steps reversed with transposed
+    permutations.  Reversed edge parent -> child, same global row range:
+    in the gather step the child sent rows [send_start[child], +size); in
+    scatter the parent sends those rows back down.  Host-side table
+    transposition (host side, cheap); the result has the exact step-table
+    format ``_apply_steps`` consumes, so the fused-kernel executor covers
+    scatter too."""
+    out = []
+    for perm, payload, send_start, recv_start, recv_valid in \
+            reversed(plan.steps):
+        rperm = tuple((dst, src) for (src, dst) in perm)
+        p_send = np.zeros(plan.p, np.int32)   # parent's read offset
+        c_recv = np.zeros(plan.p, np.int32)   # child's write offset
+        c_valid = np.zeros(plan.p, np.int32)  # child's valid rows
+        for (src, dst) in perm:
+            p_send[dst] = send_start[src]
+            c_recv[src] = send_start[src]
+            c_valid[src] = recv_valid[dst]
+        out.append((rperm, payload, p_send, c_recv, c_valid))
+    return tuple(out)
+
+
+# --------------------------------------------------------------------------
+# device side: slab backend and executors
+# --------------------------------------------------------------------------
+
+# None = kernels exactly when the tensor is on CUDA; True = kernels, and a
+# CPU tensor is an error; False = the plain PyTorch versions everywhere.
+_KERNEL_SLABS: bool | None = None
+
+
+def use_kernel_dataplane(enable: bool | None) -> None:
+    """Select the slab copy backend of the executors (the counterpart of
+    ``use_pallas_dataplane``).
+
+    ``None`` (default) runs the CUDA kernels K1–K3 exactly when the
+    buffer is a CUDA tensor and their plain versions on the CPU; ``True``
+    demands the kernels and raises for a CPU buffer; ``False`` runs the
+    plain PyTorch versions on any device.
+    """
+    global _KERNEL_SLABS
+    _KERNEL_SLABS = enable
+
+
+def _slab_ops(buf: torch.Tensor):
+    """(extract, merge, step) triple for ``buf``'s device: the wrappers of
+    ``kernels.ragged_gather.ops`` (kernels on CUDA, plain versions on the
+    CPU) or, when the kernel dataplane is switched off, ``ref`` itself."""
+    if _KERNEL_SLABS is False:
+        return (slab_ref.slab_extract_ref, slab_ref.slab_merge_ref,
+                slab_ref.slab_step_ref)
+    if _KERNEL_SLABS and buf.device.type != "cuda":
+        raise ValueError("use_kernel_dataplane(True) needs CUDA tensors, "
+                         f"got a buffer on {buf.device}")
+    return slab_ops.slab_extract, slab_ops.slab_merge, slab_ops.slab_step
+
+
+def _apply_steps(buf: torch.Tensor, steps, mesh) -> torch.Tensor:
+    """Run step tables over the rank-batched row buffer ``buf``
+    ``(n_local, buf_rows, F)`` (shared by gatherv and scatterv).
+
+    The loop keeps the reference's shape: a leading extract (K1) of the
+    first step's slab at each rank's send offset; per step one exchange
+    of ONLY that slab (``mesh.ppermute``) and, between consecutive
+    exchanges, one fused K3 that merges the received slab's valid prefix
+    at the receive offset and extracts the next outgoing slab from the
+    merged state (a forwarded slab may hold rows that just arrived); a
+    trailing merge (K2).
+
+    Deviation from the JAX executor: ``buf`` is updated IN PLACE and
+    returned, where the reference builds a new buffer every step.  The
+    tables are device tensors made once per plan (``carry.plan_tensors``),
+    so the loop makes no host-to-device copy.
+    """
+    if not steps.payloads:
+        return buf
+    extract, merge, step = _slab_ops(buf)
+    n = len(steps.payloads)
+    out = extract(buf, steps.send_start[0], steps.payloads[0])
+    for k in range(n):
+        got = mesh.ppermute(out, steps, k)
+        if k + 1 < n:
+            buf, out = step(buf, got, steps.recv_start[k],
+                            steps.recv_valid[k], steps.send_start[k + 1],
+                            steps.payloads[k + 1])
+        else:
+            buf = merge(buf, got, steps.recv_start[k], steps.recv_valid[k])
+    return buf
+
+
+def _tables_for(plan: GathervPlan, mesh, tables):
+    if plan.p != mesh.p:
+        raise ValueError(f"plan for {plan.p} ranks on a mesh of {mesh.p}")
+    if tables is None:
+        from .carry import plan_tensors  # carry imports this module
+        tables = plan_tensors(plan, mesh.device, mesh.ranks)
+    elif tables.ranks != mesh.ranks:
+        raise ValueError(f"tables hold ranks {tables.ranks}, the mesh holds "
+                         f"{mesh.ranks}")
+    return tables
+
+
+def gatherv_shard(x: torch.Tensor, plan: GathervPlan, mesh,
+                  tables=None) -> torch.Tensor:
+    """Gatherv over ``mesh`` on device tensors.
+
+    ``x``: ``(n_local, cap, F)``, the padded block of each rank the mesh
+    holds here (all ``p`` on a ``LocalMesh``, one on a
+    ``ProcessGroupMesh``).  Returns ``(n_local, buf_rows, F)``; rows
+    ``[0:total]`` of the root hold all blocks in rank order.  ``tables``
+    is ``carry.plan_tensors(plan, mesh.device, mesh.ranks)``; pass it to
+    keep the host-to-device copy of the tables out of a timed loop.
+    """
+    tables = _tables_for(plan, mesh, tables)
+    if x.device != mesh.device or x.shape[:2] != (len(mesh.ranks), plan.cap):
+        raise ValueError(f"x must be ({len(mesh.ranks)}, {plan.cap}, F) on "
+                         f"{mesh.device}, got {tuple(x.shape)} on {x.device}")
+    buf = torch.zeros((x.shape[0], plan.buf_rows, x.shape[2]),
+                      dtype=x.dtype, device=x.device)
+    # own (padded) block at its global offset: dynamic_update_slice in the
+    # reference, a K2 merge of all ``cap`` rows here; spill rows are later
+    # overwritten by received ranges
+    _, merge, _ = _slab_ops(buf)
+    merge(buf, x, tables.offsets, tables.cap_rows)
+    return _apply_steps(buf, tables.gather, mesh)
+
+
+def scatterv_shard(buf_root: torch.Tensor, plan: GathervPlan, mesh,
+                   tables=None) -> torch.Tensor:
+    """Scatterv over ``mesh`` on device tensors (the reversed schedule).
+
+    ``buf_root``: ``(n_local, buf_rows, F)``; only the root's rows
+    ``[0:total]`` are read.  It is updated IN PLACE (the reference is
+    functional).  Returns the ``(n_local, cap, F)`` block of every rank
+    held here.
+    """
+    tables = _tables_for(plan, mesh, tables)
+    if (buf_root.device != mesh.device
+            or buf_root.shape[:2] != (len(mesh.ranks), plan.buf_rows)):
+        raise ValueError(f"buf_root must be ({len(mesh.ranks)}, "
+                         f"{plan.buf_rows}, F) on {mesh.device}, got "
+                         f"{tuple(buf_root.shape)} on {buf_root.device}")
+    buf = _apply_steps(buf_root, tables.scatter, mesh)
+    extract, _, _ = _slab_ops(buf)
+    return extract(buf, tables.offsets, plan.cap)
+
+
+# --------------------------------------------------------------------------
+# host entry points
+# --------------------------------------------------------------------------
+
+class InjectedFault(RuntimeError):
+    """A chaos-injected delivery failure (one attempt); retried like a
+    real transient fault."""
+
+
+class CollectiveTimeout(RuntimeError):
+    """A collective missed its per-step deadline after bounded retry,
+    raised instead of hanging so the caller can escalate."""
+
+    def __init__(self, op: str, attempts: int, deadline_s: float,
+                 last_s: float):
+        super().__init__(
+            f"collective {op!r} missed its {deadline_s * 1e3:.1f} ms step "
+            f"deadline after {attempts} attempt(s) "
+            f"(last took {last_s * 1e3:.1f} ms)")
+        self.op = op
+        self.attempts = attempts
+        self.deadline_s = deadline_s
+        self.last_s = last_s
+
+
+# step-deadline config for every host entry point; None disables the check.
+_STEP_DEADLINE = {"deadline_s": None, "retries": 2, "backoff": 2.0,
+                  "sleep_s": 0.0}
+_FAULT_HOOK = None  # callable(op, attempt) raising InjectedFault, or None
+
+
+def configure_step_deadline(deadline_s: float | None, retries: int = 2,
+                            backoff: float = 2.0,
+                            sleep_s: float = 0.0) -> None:
+    """Arm (or disarm, ``deadline_s=None``) the per-step deadline.
+
+    Every host entry point's execution gets ``retries`` retries; attempt ``k``
+    is allowed ``deadline_s * backoff**k``, with an optional
+    ``sleep_s``-seeded backoff sleep between attempts.  The final miss
+    raises :class:`CollectiveTimeout`.
+    """
+    _STEP_DEADLINE.update(deadline_s=(None if deadline_s is None
+                                      else float(deadline_s)),
+                          retries=int(retries), backoff=float(backoff),
+                          sleep_s=float(sleep_s))
+
+
+def set_fault_hook(hook) -> None:
+    """Install a chaos hook called as ``hook(op, attempt)`` before every
+    host entry point's execution attempt; raising :class:`InjectedFault` fails
+    that attempt into the retry path.  ``None`` uninstalls."""
+    global _FAULT_HOOK
+    _FAULT_HOOK = hook
+
+
+_MISSED = object()
+
+
+def call_with_deadline(op: str, thunk):
+    """Run ``thunk`` under the step deadline + bounded retry.
+
+    Returns ``(result, seconds, attempts)``.  An attempt fails if the
+    fault hook injects a fault or the wall time exceeds this attempt's
+    allowance; after ``retries`` failed retries, raises
+    :class:`CollectiveTimeout` instead of hanging the step.
+    """
+    deadline = _STEP_DEADLINE["deadline_s"]
+    retries = int(_STEP_DEADLINE["retries"])
+    backoff = float(_STEP_DEADLINE["backoff"])
+    sleep_s = float(_STEP_DEADLINE["sleep_s"])
+    attempt = 0
+    while True:
+        t0 = time.perf_counter()
+        try:
+            if _FAULT_HOOK is not None:
+                _FAULT_HOOK(op, attempt)
+            out = thunk()
+        except InjectedFault:
+            out = _MISSED
+        dt = time.perf_counter() - t0
+        allowance = (None if deadline is None
+                     else deadline * backoff ** attempt)
+        if out is not _MISSED and (allowance is None or dt <= allowance):
+            return out, dt, attempt + 1
+        attempt += 1
+        if attempt > retries:
+            raise CollectiveTimeout(op, attempt, deadline or 0.0, dt)
+        _OBS_REGISTRY.counter("run_retries").inc()
+        if sleep_s:
+            time.sleep(min(sleep_s * backoff ** (attempt - 1), 1.0))
+
+
+def _run_traced(op: str, plan, row_bytes: int, fn):
+    """Execute an entry point's thunk with the telemetry plane around it.
+
+    Wall-clock timing + default-registry counters always; a trace span
+    with the plan shape and bytes moved only when ``repro_torch.obs.trace``
+    is enabled.  Execution goes through :func:`call_with_deadline`.  The
+    thunk must end in a host copy or a device synchronise, so that the
+    wall time covers the device work.
+    """
+    tr = obs_trace.current()
+    t0 = time.perf_counter()
+    out, _, attempts = call_with_deadline(op, fn)
+    dt = time.perf_counter() - t0
+    _OBS_REGISTRY.counter("run_" + op).inc()
+    _OBS_REGISTRY.histogram("run_seconds").observe(dt)
+    if tr is not None:
+        args = {"op": op, "p": plan.p, "segments": plan.segments,
+                "num_stages": plan.num_stages, "measured_s": dt,
+                "row_bytes": int(row_bytes), "attempts": attempts}
+        for cls, nb in obs_trace.plan_link_bytes(
+                plan.steps, row_bytes=int(row_bytes)).items():
+            args[f"bytes_{cls}"] = nb
+        tr.add_complete("run/" + op, "collective", t0, dt, **args)
+    return out
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_gatherv(mesh, blocks: list[np.ndarray], root: int,
+                bucket_rounds: int = 1, segments: int = 1,
+                wave_bin_ratio: float = 0.0, tree: GatherTree | None = None):
+    """Host-facing helper: gather ragged ``blocks`` (list of ``(n_i, F)``
+    numpy arrays, one per rank) to the root over ``mesh``.
+
+    Returns ``(result, plan)``: ``result`` is the root's ``(total, F)``
+    numpy array, or ``None`` in a process of a ``ProcessGroupMesh`` that
+    does not hold the root.  Every process passes the full ``blocks``
+    list (the sizes plan the tree); only its own ranks' blocks are read.
+    """
+    sizes = [int(b.shape[0]) for b in blocks]
+    F = blocks[0].shape[1]
+    plan = plan_gatherv(sizes, root, tree=tree, bucket_rounds=bucket_rounds,
+                        segments=segments, wave_bin_ratio=wave_bin_ratio)
+    tables = _tables_for(plan, mesh, None)
+    x = torch.zeros((len(mesh.ranks), plan.cap, F),
+                    dtype=torch.from_numpy(blocks[0][:0]).dtype,
+                    device=mesh.device)
+    for i, r in enumerate(mesh.ranks):
+        x[i, : sizes[r]] = torch.from_numpy(np.ascontiguousarray(blocks[r]))
+
+    def run():
+        buf = gatherv_shard(x, plan, mesh, tables)
+        if root not in mesh.ranks:
+            _sync(mesh.device)
+            return None
+        return buf[mesh.ranks.index(root), : plan.total].cpu().numpy()
+
+    out = _run_traced("gatherv", plan, F * blocks[0].dtype.itemsize, run)
+    return out, plan
+
+
+def run_scatterv(mesh, data: np.ndarray, sizes: list[int], root: int,
+                 bucket_rounds: int = 1, segments: int = 1,
+                 wave_bin_ratio: float = 0.0, tree: GatherTree | None = None):
+    """Scatter rank-ordered rows of ``data`` ``(total, F)`` from the root
+    into ragged per-rank blocks.  Returns ``(blocks, plan)``: a list of
+    ``p`` entries, the ``(n_i, F)`` numpy block of every rank held here
+    and ``None`` for ranks other processes hold."""
+    plan = plan_gatherv(sizes, root, tree=tree, bucket_rounds=bucket_rounds,
+                        segments=segments, wave_bin_ratio=wave_bin_ratio)
+    tables = _tables_for(plan, mesh, None)
+    F = data.shape[1]
+    xin = torch.zeros((len(mesh.ranks), plan.buf_rows, F),
+                      dtype=torch.from_numpy(data[:0]).dtype,
+                      device=mesh.device)
+    if root in mesh.ranks:
+        xin[mesh.ranks.index(root), : plan.total] = torch.from_numpy(
+            np.ascontiguousarray(data))
+
+    def run():
+        return scatterv_shard(xin, plan, mesh, tables).cpu().numpy()
+
+    own = _run_traced("scatterv", plan, F * data.dtype.itemsize, run)
+    out = [None] * plan.p
+    for i, r in enumerate(mesh.ranks):
+        out[r] = own[i, : plan.sizes[r]]
+    return out, plan
