@@ -1,7 +1,9 @@
-"""TUW gatherv/scatterv on PyTorch: plan tables on the host, slab kernels
-and peer-to-peer exchanges on the device.
+"""TUW collectives on PyTorch: plan tables on the host, slab kernels and
+peer-to-peer exchanges on the device.
 
-The port of the static-irregular mode of ``repro.core.jax_collectives``.
+The port of the static-irregular mode of ``repro.core.jax_collectives``:
+gatherv/scatterv, the composed allgatherv/alltoallv and the reduction
+collectives reduce_scatterv/allreducev.
 Block sizes are known when the plan is built: the tree is built on the
 host and each of its merge rounds becomes one exchange step (or several,
 when bucketed or pipelined) whose pairs are disjoint sender->receiver
@@ -16,8 +18,9 @@ port runs over a mesh (``repro_torch.core.mesh``): ``LocalMesh`` keeps
 every rank on the leading axis of one tensor, ``ProcessGroupMesh`` keeps
 one rank per process and exchanges with ``torch.distributed``.  The slab
 copies between exchanges are the kernels K1–K3 of
-``repro_torch.kernels.ragged_gather`` on CUDA tensors and their plain
-PyTorch versions on CPU tensors.
+``repro_torch.kernels.ragged_gather`` (K4–K5 where received slabs are
+summed instead of copied) on CUDA tensors and their plain PyTorch
+versions on CPU tensors.
 """
 from __future__ import annotations
 
@@ -32,8 +35,10 @@ from repro_torch.kernels.ragged_gather import ref as slab_ref
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import REGISTRY as _OBS_REGISTRY
 
+from .composed import (ComposedSchedule, allgatherv_schedule,
+                       alltoallv_schedule, reduce_scatterv_schedule)
 from .pipeline import num_stages as _pipeline_num_stages
-from .pipeline import pipeline_rounds
+from .pipeline import pipeline_rounds, pipeline_rounds_per_tree
 from .treegather import GatherTree, build_gather_tree
 
 # --------------------------------------------------------------------------
@@ -272,6 +277,393 @@ def _reversed_step_tables(plan: "GathervPlan") -> tuple[tuple, ...]:
 
 
 # --------------------------------------------------------------------------
+# composed collectives: allgatherv / alltoallv (``core.composed``)
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ComposedPlan:
+    """Validated schedule tables for a composed collective.
+
+    Same step-table format as :class:`GathervPlan` (so the same
+    ``_apply_steps`` executor runs it), plus the flat-row-space layout:
+    rank ``i`` writes its input at ``in_starts[i]``; for alltoallv the
+    ``extract`` tables copy each received block from its flat offset to
+    its consecutive-rank-range output offset (``chunk``-row slabs).
+    """
+
+    kind: str                       # "allgatherv" | "alltoallv"
+    p: int
+    root: int                       # allgatherv gather root; -1 alltoallv
+    total: int                      # flat row-space rows
+    cap: int                        # per-rank input rows (padded)
+    buf_rows: int                   # working buffer rows (total + spill)
+    in_starts: tuple[int, ...]      # where rank i's input lives (flat)
+    out_valid: tuple[int, ...]      # true output rows per rank
+    out_rows: int                   # output buffer rows (incl. spill)
+    steps: tuple[tuple, ...]        # (perm, payload, send/recv tables)
+    extract: tuple[tuple, ...]      # alltoallv: (src_start, dst_start, valid)
+    chunk: int                      # extraction slab rows
+    num_rounds: int                 # composed global rounds (pre-bucketing)
+    tree_bytes_exact: int
+    tree_bytes_padded: int
+    segments: int = 1               # pipeline segment count S (1 = monolithic)
+    stage_ids: tuple[int, ...] = ()   # pipeline stage of each step
+    num_stages: int = 0             # rounds + S - 1 stages
+    wave_bin_ratio: float = 0.0     # payload-bin ratio (0 = fixed-count)
+
+    @property
+    def padding_overhead(self) -> float:
+        """Within-step slab padding as a fraction, as
+        :meth:`GathervPlan.padding_overhead`."""
+        if self.tree_bytes_exact == 0:
+            return 0.0
+        return self.tree_bytes_padded / self.tree_bytes_exact - 1.0
+
+    def validate(self) -> None:
+        """Exchange legality + bounds; raises AssertionError on violation."""
+        _validate_steps(self)
+        for src_start, dst_start, valid in self.extract:
+            for i in range(self.p):
+                if valid[i] > 0:
+                    assert 0 <= src_start[i] <= self.buf_rows - self.chunk
+                    assert 0 <= dst_start[i] <= self.out_rows - self.chunk
+                    assert valid[i] <= self.chunk
+
+
+def _validate_steps(plan) -> None:
+    """Unique senders and receivers per step, windows inside the buffer,
+    and the received rows summing to ``tree_bytes_exact``.  For a
+    reduction plan the unique-receiver check is correctness, not just
+    legality: a row folded twice in one step would be counted twice."""
+    recv_total = 0
+    for perm, payload, send_start, recv_start, recv_valid in plan.steps:
+        srcs = [s for s, _ in perm]
+        dsts = [d for _, d in perm]
+        assert len(set(srcs)) == len(srcs), "step has a double sender"
+        assert len(set(dsts)) == len(dsts), "step has a double receiver"
+        assert 1 <= payload
+        for s, d in perm:
+            assert 0 <= send_start[s] <= plan.buf_rows - payload
+            assert 0 <= recv_start[d] <= plan.buf_rows - payload
+            assert 0 < recv_valid[d] <= payload
+            recv_total += int(recv_valid[d])
+    assert recv_total == plan.tree_bytes_exact
+    assert plan.tree_bytes_exact <= plan.tree_bytes_padded
+
+
+def _schedule_rounds(schedule: ComposedSchedule) -> list:
+    return [[(t.src, t.dst, t.size, t.start) for t in rnd]
+            for rnd in schedule.rounds]
+
+
+def plan_allgatherv(sizes, root: int | None = None,
+                    bucket_rounds: int = 1, segments: int = 1,
+                    wave_bin_ratio: float = 0.0, validate: bool = True,
+                    schedule: ComposedSchedule | None = None) -> ComposedPlan:
+    """Lower an allgatherv schedule (gather + broadcast) to exchange steps.
+
+    Every rank ends with all blocks in rank order in rows ``[0:total]`` of
+    its buffer.  ``root=None`` lets the algorithm choose the gather root
+    (Lemma 1).  ``segments > 1`` pipelines the whole composed schedule by
+    global row chunks and defaults to the CHAIN broadcast (every port
+    sends the buffer once); monolithic plans keep the reversed-tree
+    broadcast.  Pass ``schedule`` to override.  ``validate=False`` skips
+    the O(steps·p) structural check.
+    """
+    if schedule is None:
+        schedule = allgatherv_schedule(
+            sizes, root=root, broadcast="chain" if segments > 1 else "tree")
+    assert schedule.kind == "allgatherv"
+    # a prebuilt schedule must describe THIS problem, not a stale one
+    assert (schedule.sizes[0] == np.asarray([int(s) for s in sizes])).all(), \
+        "schedule was built for different block sizes"
+    assert root is None or schedule.root == root, \
+        "schedule was built for a different root"
+    sizes = tuple(int(s) for s in schedule.sizes[0])
+    p = schedule.p
+    total = schedule.total_rows
+    cap = max(1, max(sizes, default=0))
+    offsets = tuple(int(x) for x in schedule.offsets(0))
+    rounds = pipeline_rounds(_schedule_rounds(schedule), segments, total)
+    steps, exact, padded, max_payload, stage_ids = _bucketed_steps(
+        rounds, p, bucket_rounds, wave_bin_ratio)
+    buf_rows = total + max(cap, max_payload)
+    plan = ComposedPlan(
+        "allgatherv", p, schedule.root, total, cap, buf_rows,
+        in_starts=offsets, out_valid=(total,) * p, out_rows=buf_rows,
+        steps=steps, extract=(), chunk=1, num_rounds=schedule.num_rounds,
+        tree_bytes_exact=exact, tree_bytes_padded=padded,
+        segments=int(segments), stage_ids=stage_ids,
+        num_stages=_pipeline_num_stages(schedule.num_rounds, segments),
+        wave_bin_ratio=float(wave_bin_ratio))
+    if validate:
+        plan.validate()
+    return plan
+
+
+def plan_alltoallv(size_matrix, bucket_rounds: int = 1, segments: int = 1,
+                   wave_bin_ratio: float = 0.0, validate: bool = True,
+                   schedule: ComposedSchedule | None = None) -> ComposedPlan:
+    """Lower an alltoallv schedule (p packed scatter trees, or the direct
+    pairwise rounds of ``alltoallv_direct_schedule``) to exchange steps
+    plus per-tree extraction tables.
+
+    Rank ``i`` supplies its packed row (blocks for ranks 0..p-1,
+    concatenated); it receives blocks from all sources, each at its
+    consecutive-rank-range output offset ``sum_{i'<i} S[i'][j]``.
+    ``segments > 1`` pipelines PER TREE (each source tree's own row span
+    is cut into ``segments`` chunks).
+    """
+    if schedule is None:
+        schedule = alltoallv_schedule(size_matrix)
+    assert schedule.kind == "alltoallv"
+    # a prebuilt schedule must describe THIS problem, not a stale one
+    assert (schedule.sizes == np.asarray(size_matrix, dtype=np.int64)).all(), \
+        "schedule was built for a different size matrix"
+    S = schedule.sizes
+    p = schedule.p
+    row_totals = S.sum(axis=1)
+    col_totals = S.sum(axis=0)
+    total = schedule.total_rows
+    cap = max(1, int(row_totals.max(initial=0)))
+    chunk = max(1, int(S.max(initial=0)))
+    # zero-row trees contribute no transfers and no spans
+    tree_spans = [(int(schedule.row_starts[r]),
+                   int(schedule.row_starts[r]) + int(row_totals[r]))
+                  for r in range(p) if row_totals[r] > 0]
+    rounds = pipeline_rounds_per_tree(_schedule_rounds(schedule), segments,
+                                      tree_spans)
+    steps, exact, padded, max_payload, stage_ids = _bucketed_steps(
+        rounds, p, bucket_rounds, wave_bin_ratio)
+    buf_rows = total + max(cap, max_payload, chunk)
+    out_valid = tuple(int(c) for c in col_totals)
+    out_rows = max(1, int(col_totals.max(initial=0))) + chunk
+    # block (r -> j) lands at sum_{i<r} S[i][j]: the column-wise
+    # consecutive-rank-range invariant
+    dst_off = np.concatenate([np.zeros((1, p), np.int64),
+                              np.cumsum(S, axis=0)[:-1]])
+    extract = []
+    for r in range(p):
+        if row_totals[r] == 0:
+            continue
+        offs = schedule.offsets(r)
+        src_start = (int(schedule.row_starts[r]) + offs).astype(np.int32)
+        extract.append((src_start, dst_off[r].astype(np.int32),
+                        S[r].astype(np.int32)))
+    plan = ComposedPlan(
+        "alltoallv", p, -1, total, cap, buf_rows,
+        in_starts=tuple(int(x) for x in schedule.row_starts),
+        out_valid=out_valid, out_rows=out_rows, steps=steps,
+        extract=tuple(extract), chunk=chunk, num_rounds=schedule.num_rounds,
+        tree_bytes_exact=exact, tree_bytes_padded=padded,
+        segments=int(segments), stage_ids=stage_ids,
+        num_stages=_pipeline_num_stages(schedule.num_rounds, segments),
+        wave_bin_ratio=float(wave_bin_ratio))
+    if validate:
+        plan.validate()
+    return plan
+
+
+# --------------------------------------------------------------------------
+# reduction collectives: reduce_scatterv / allreducev
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ReduceScattervPlan:
+    """Validated schedule tables for reduce_scatterv.
+
+    Same step-table format as :class:`GathervPlan`: the same
+    ``_apply_steps`` runs it, with ``reduce=True`` swapping the merge for
+    the fused add (K4/K5).  Every rank supplies a full ``(total, F)``
+    contribution in flat layout (segment ``j``'s rows at ``offsets[j]``);
+    rank ``j`` ends with ``sum_i contribution_i[offsets[j]:
+    offsets[j]+sizes[j]]``.
+
+    Bitwise determinism: the tables are a pure function of ``sizes``,
+    each flat row receives at most one fold per step, and every fold is
+    ordered by step index, so the summation order of every row is fixed:
+    results repeat run to run, and pipelined plans equal monolithic ones
+    bit for bit.
+    """
+
+    p: int
+    sizes: tuple[int, ...]          # rows owned (received) by each rank
+    offsets: tuple[int, ...]        # flat row offset of each segment
+    total: int                      # sum(sizes)
+    cap: int                        # output rows per rank (padded)
+    in_rows: int                    # input rows per rank (>= 1)
+    buf_rows: int                   # working buffer rows (total + spill)
+    steps: tuple[tuple, ...]        # (perm, payload, send/recv tables)
+    num_rounds: int                 # schedule rounds (pre-bucketing)
+    tree_bytes_exact: int
+    tree_bytes_padded: int
+    segments: int = 1               # pipeline segment count S
+    stage_ids: tuple[int, ...] = ()   # pipeline stage of each step
+    num_stages: int = 0             # rounds + S - 1 stages
+    wave_bin_ratio: float = 0.0
+
+    @property
+    def padding_overhead(self) -> float:
+        """Within-step slab padding as a fraction (0.0 when nothing
+        moves)."""
+        if self.tree_bytes_exact == 0:
+            return 0.0
+        return self.tree_bytes_padded / self.tree_bytes_exact - 1.0
+
+    def validate(self) -> None:
+        """Exchange legality + bounds; raises AssertionError on violation."""
+        _validate_steps(self)
+
+
+def plan_reduce_scatterv(sizes, bucket_rounds: int = 1, segments: int = 1,
+                         wave_bin_ratio: float = 0.0, validate: bool = True,
+                         schedule: ComposedSchedule | None = None
+                         ) -> ReduceScattervPlan:
+    """Lower a reduce_scatterv schedule to fused-add exchange steps.
+
+    Default schedule: the packed per-segment reduction trees of
+    :func:`~repro_torch.core.composed.reduce_scatterv_schedule`; pass the
+    direct or recursive-halving schedule to run those instead.
+    ``segments > 1`` pipelines tree/direct schedules PER SEGMENT SPAN and
+    halving schedules (whose transfers carry several segments) by GLOBAL
+    row chunks.  Either way each row still folds in its rounds' order.
+    """
+    if schedule is None:
+        schedule = reduce_scatterv_schedule(sizes)
+    assert schedule.kind == "reduce_scatterv"
+    # a prebuilt schedule must describe THIS problem, not a stale one
+    assert (schedule.sizes[0] == np.asarray([int(s) for s in sizes])).all(), \
+        "schedule was built for different segment sizes"
+    sizes = tuple(int(s) for s in schedule.sizes[0])
+    p = schedule.p
+    total = schedule.total_rows
+    cap = max(1, max(sizes, default=0))
+    offsets = tuple(int(x) for x in schedule.offsets(0))
+    rounds = _schedule_rounds(schedule)
+    if any(t.lo != t.hi for rnd in schedule.rounds for t in rnd):
+        rounds = pipeline_rounds(rounds, segments, total)
+    else:
+        spans = [(offsets[j], offsets[j] + sizes[j])
+                 for j in range(p) if sizes[j] > 0]
+        rounds = pipeline_rounds_per_tree(rounds, segments, spans)
+    steps, exact, padded, max_payload, stage_ids = _bucketed_steps(
+        rounds, p, bucket_rounds, wave_bin_ratio)
+    buf_rows = total + max(cap, max_payload)
+    plan = ReduceScattervPlan(
+        p, sizes, offsets, total, cap, max(1, total), buf_rows, steps,
+        num_rounds=schedule.num_rounds, tree_bytes_exact=exact,
+        tree_bytes_padded=padded, segments=int(segments),
+        stage_ids=stage_ids,
+        num_stages=_pipeline_num_stages(schedule.num_rounds, segments),
+        wave_bin_ratio=float(wave_bin_ratio))
+    if validate:
+        plan.validate()
+    return plan
+
+
+@dataclass(frozen=True)
+class AllreducevPlan:
+    """allreducev = reduce_scatterv then allgatherv on ONE buffer.
+
+    The post-reduce state (owner ``j``'s reduced block at ``offsets[j]``)
+    is exactly the allgatherv start state, so the two step walks run one
+    after the other with no repacking between them.  The properties
+    present the pair as one plan.
+    """
+
+    rs: ReduceScattervPlan
+    ag: ComposedPlan
+
+    @property
+    def p(self) -> int:
+        return self.rs.p
+
+    @property
+    def sizes(self) -> tuple[int, ...]:
+        return self.rs.sizes
+
+    @property
+    def offsets(self) -> tuple[int, ...]:
+        return self.rs.offsets
+
+    @property
+    def total(self) -> int:
+        return self.rs.total
+
+    @property
+    def in_rows(self) -> int:
+        return self.rs.in_rows
+
+    @property
+    def buf_rows(self) -> int:
+        return max(self.rs.buf_rows, self.ag.buf_rows)
+
+    @property
+    def steps(self) -> tuple[tuple, ...]:
+        return self.rs.steps + self.ag.steps
+
+    @property
+    def stage_ids(self) -> tuple[int, ...]:
+        # gather stages run strictly after every reduce stage completed
+        shift = self.rs.num_stages
+        return self.rs.stage_ids + tuple(s + shift for s in self.ag.stage_ids)
+
+    @property
+    def num_stages(self) -> int:
+        return self.rs.num_stages + self.ag.num_stages
+
+    @property
+    def num_rounds(self) -> int:
+        return self.rs.num_rounds + self.ag.num_rounds
+
+    @property
+    def segments(self) -> int:
+        return max(self.rs.segments, self.ag.segments)
+
+    @property
+    def tree_bytes_exact(self) -> int:
+        return self.rs.tree_bytes_exact + self.ag.tree_bytes_exact
+
+    @property
+    def tree_bytes_padded(self) -> int:
+        return self.rs.tree_bytes_padded + self.ag.tree_bytes_padded
+
+    @property
+    def padding_overhead(self) -> float:
+        if self.tree_bytes_exact == 0:
+            return 0.0
+        return self.tree_bytes_padded / self.tree_bytes_exact - 1.0
+
+    def validate(self) -> None:
+        self.rs.validate()
+        self.ag.validate()
+        assert self.rs.sizes == tuple(
+            int(s) for s in np.diff(
+                list(self.ag.in_starts) + [self.ag.total])), \
+            "reduce and gather halves disagree on the segment layout"
+
+
+def plan_allreducev(sizes, bucket_rounds: int = 1, segments: int = 1,
+                    wave_bin_ratio: float = 0.0, validate: bool = True,
+                    rs_schedule: ComposedSchedule | None = None,
+                    ag_schedule: ComposedSchedule | None = None
+                    ) -> AllreducevPlan:
+    """Lower allreducev: a reduce_scatterv plan chained with an
+    allgatherv plan over the same segment layout and buffer."""
+    rs = plan_reduce_scatterv(sizes, bucket_rounds=bucket_rounds,
+                              segments=segments,
+                              wave_bin_ratio=wave_bin_ratio,
+                              validate=validate, schedule=rs_schedule)
+    ag = plan_allgatherv(sizes, root=None, bucket_rounds=bucket_rounds,
+                         segments=segments, wave_bin_ratio=wave_bin_ratio,
+                         validate=validate, schedule=ag_schedule)
+    plan = AllreducevPlan(rs=rs, ag=ag)
+    if validate:
+        plan.validate()
+    return plan
+
+
+# --------------------------------------------------------------------------
 # device side: slab backend and executors
 # --------------------------------------------------------------------------
 
@@ -281,10 +673,10 @@ _KERNEL_SLABS: bool | None = None
 
 
 def use_kernel_dataplane(enable: bool | None) -> None:
-    """Select the slab copy backend of the executors (the counterpart of
+    """Select the slab backend of the executors (the counterpart of
     ``use_pallas_dataplane``).
 
-    ``None`` (default) runs the CUDA kernels K1–K3 exactly when the
+    ``None`` (default) runs the CUDA kernels K1–K5 exactly when the
     buffer is a CUDA tensor and their plain versions on the CPU; ``True``
     demands the kernels and raises for a CPU buffer; ``False`` runs the
     plain PyTorch versions on any device.
@@ -293,30 +685,43 @@ def use_kernel_dataplane(enable: bool | None) -> None:
     _KERNEL_SLABS = enable
 
 
-def _slab_ops(buf: torch.Tensor):
+def _slab_ops(buf: torch.Tensor, reduce: bool = False):
     """(extract, merge, step) triple for ``buf``'s device: the wrappers of
     ``kernels.ragged_gather.ops`` (kernels on CUDA, plain versions on the
-    CPU) or, when the kernel dataplane is switched off, ``ref`` itself."""
+    CPU) or, when the kernel dataplane is switched off, ``ref`` itself.
+    ``reduce=True`` swaps in the fused-add pair (K4 ``slab_merge_add``,
+    K5 ``slab_step_reduce``): received slabs fold into the accumulator
+    instead of overwriting it, the only difference between the
+    byte-moving and the reducing data planes."""
     if _KERNEL_SLABS is False:
+        if reduce:
+            return (slab_ref.slab_extract_ref, slab_ref.slab_merge_add_ref,
+                    slab_ref.slab_step_reduce_ref)
         return (slab_ref.slab_extract_ref, slab_ref.slab_merge_ref,
                 slab_ref.slab_step_ref)
     if _KERNEL_SLABS and buf.device.type != "cuda":
         raise ValueError("use_kernel_dataplane(True) needs CUDA tensors, "
                          f"got a buffer on {buf.device}")
+    if reduce:
+        return (slab_ops.slab_extract, slab_ops.slab_merge_add,
+                slab_ops.slab_step_reduce)
     return slab_ops.slab_extract, slab_ops.slab_merge, slab_ops.slab_step
 
 
-def _apply_steps(buf: torch.Tensor, steps, mesh) -> torch.Tensor:
+def _apply_steps(buf: torch.Tensor, steps, mesh,
+                 reduce: bool = False) -> torch.Tensor:
     """Run step tables over the rank-batched row buffer ``buf``
-    ``(n_local, buf_rows, F)`` (shared by gatherv and scatterv).
+    ``(n_local, buf_rows, F)`` (shared by every executor).
 
     The loop keeps the reference's shape: a leading extract (K1) of the
     first step's slab at each rank's send offset; per step one exchange
     of ONLY that slab (``mesh.ppermute``) and, between consecutive
-    exchanges, one fused K3 that merges the received slab's valid prefix
-    at the receive offset and extracts the next outgoing slab from the
-    merged state (a forwarded slab may hold rows that just arrived); a
-    trailing merge (K2).
+    exchanges, one fused step (K3) that merges the received slab's valid
+    prefix at the receive offset and extracts the next outgoing slab from
+    the merged state (a forwarded slab may hold rows that just arrived);
+    a trailing merge (K2).  ``reduce=True`` runs the same loop with K5
+    and K4, which add the received slab instead: a rank that receives
+    nothing has ``recv_valid`` 0, so its accumulator keeps its bits.
 
     Deviation from the JAX executor: ``buf`` is updated IN PLACE and
     returned, where the reference builds a new buffer every step.  The
@@ -325,7 +730,7 @@ def _apply_steps(buf: torch.Tensor, steps, mesh) -> torch.Tensor:
     """
     if not steps.payloads:
         return buf
-    extract, merge, step = _slab_ops(buf)
+    extract, merge, step = _slab_ops(buf, reduce)
     n = len(steps.payloads)
     out = extract(buf, steps.send_start[0], steps.payloads[0])
     for k in range(n):
@@ -339,7 +744,7 @@ def _apply_steps(buf: torch.Tensor, steps, mesh) -> torch.Tensor:
     return buf
 
 
-def _tables_for(plan: GathervPlan, mesh, tables):
+def _tables_for(plan, mesh, tables):
     if plan.p != mesh.p:
         raise ValueError(f"plan for {plan.p} ranks on a mesh of {mesh.p}")
     if tables is None:
@@ -349,6 +754,25 @@ def _tables_for(plan: GathervPlan, mesh, tables):
         raise ValueError(f"tables hold ranks {tables.ranks}, the mesh holds "
                          f"{mesh.ranks}")
     return tables
+
+
+def _check_input(x: torch.Tensor, rows: int, mesh) -> None:
+    if x.device != mesh.device or x.dim() != 3 \
+            or x.shape[:2] != (len(mesh.ranks), rows):
+        raise ValueError(f"x must be ({len(mesh.ranks)}, {rows}, F) on "
+                         f"{mesh.device}, got {tuple(x.shape)} on {x.device}")
+
+
+def _placed_input(x: torch.Tensor, plan, tables) -> torch.Tensor:
+    """A zero ``(n_local, buf_rows, F)`` buffer with each rank's padded
+    block at its own row (``offsets`` of a gatherv plan, ``in_starts`` of
+    a composed one): ``dynamic_update_slice`` in the reference, a K2
+    merge of all ``cap`` rows here; spill rows are later overwritten by
+    received ranges."""
+    buf = torch.zeros((x.shape[0], plan.buf_rows, x.shape[2]),
+                      dtype=x.dtype, device=x.device)
+    _, merge, _ = _slab_ops(buf)
+    return merge(buf, x, tables.offsets, tables.cap_rows)
 
 
 def gatherv_shard(x: torch.Tensor, plan: GathervPlan, mesh,
@@ -363,17 +787,8 @@ def gatherv_shard(x: torch.Tensor, plan: GathervPlan, mesh,
     keep the host-to-device copy of the tables out of a timed loop.
     """
     tables = _tables_for(plan, mesh, tables)
-    if x.device != mesh.device or x.shape[:2] != (len(mesh.ranks), plan.cap):
-        raise ValueError(f"x must be ({len(mesh.ranks)}, {plan.cap}, F) on "
-                         f"{mesh.device}, got {tuple(x.shape)} on {x.device}")
-    buf = torch.zeros((x.shape[0], plan.buf_rows, x.shape[2]),
-                      dtype=x.dtype, device=x.device)
-    # own (padded) block at its global offset: dynamic_update_slice in the
-    # reference, a K2 merge of all ``cap`` rows here; spill rows are later
-    # overwritten by received ranges
-    _, merge, _ = _slab_ops(buf)
-    merge(buf, x, tables.offsets, tables.cap_rows)
-    return _apply_steps(buf, tables.gather, mesh)
+    _check_input(x, plan.cap, mesh)
+    return _apply_steps(_placed_input(x, plan, tables), tables.walks[0], mesh)
 
 
 def scatterv_shard(buf_root: torch.Tensor, plan: GathervPlan, mesh,
@@ -391,9 +806,83 @@ def scatterv_shard(buf_root: torch.Tensor, plan: GathervPlan, mesh,
         raise ValueError(f"buf_root must be ({len(mesh.ranks)}, "
                          f"{plan.buf_rows}, F) on {mesh.device}, got "
                          f"{tuple(buf_root.shape)} on {buf_root.device}")
-    buf = _apply_steps(buf_root, tables.scatter, mesh)
+    buf = _apply_steps(buf_root, tables.walks[1], mesh)
     extract, _, _ = _slab_ops(buf)
     return extract(buf, tables.offsets, plan.cap)
+
+
+def allgatherv_shard(x: torch.Tensor, plan: ComposedPlan, mesh,
+                     tables=None) -> torch.Tensor:
+    """Allgatherv over ``mesh`` on device tensors.  ``x``: ``(n_local,
+    cap, F)``, each held rank's padded block.  Returns ``(n_local,
+    buf_rows, F)``; rows ``[0:total]`` hold all blocks in rank order on
+    EVERY rank (gather steps, then broadcast steps)."""
+    tables = _tables_for(plan, mesh, tables)
+    _check_input(x, plan.cap, mesh)
+    return _apply_steps(_placed_input(x, plan, tables), tables.walks[0], mesh)
+
+
+def alltoallv_shard(x: torch.Tensor, plan: ComposedPlan, mesh,
+                    tables=None) -> torch.Tensor:
+    """Alltoallv over ``mesh`` on device tensors.  ``x``: ``(n_local, cap,
+    F)``, each held rank's packed row of blocks for ranks 0..p-1.
+    Returns ``(n_local, out_rows, F)``; rows ``[0:out_valid[j]]`` of rank
+    ``j`` are the received blocks in source-rank order.
+
+    The reference's extraction (a masked ``dynamic_slice`` /
+    ``dynamic_update_slice`` per tree) is one K1 extract of ``chunk``
+    rows plus one K2 merge of its valid prefix per tree here.
+    """
+    tables = _tables_for(plan, mesh, tables)
+    _check_input(x, plan.cap, mesh)
+    buf = _apply_steps(_placed_input(x, plan, tables), tables.walks[0], mesh)
+    out = torch.zeros((x.shape[0], plan.out_rows, x.shape[2]),
+                      dtype=x.dtype, device=x.device)
+    extract, merge, _ = _slab_ops(buf)
+    for src_start, dst_start, valid in tables.extract:
+        merge(out, extract(buf, src_start, plan.chunk), dst_start, valid)
+    return out
+
+
+def _contribution_buffer(x: torch.Tensor, buf_rows: int) -> torch.Tensor:
+    """A zero ``(n_local, buf_rows, F)`` buffer with each rank's flat
+    contribution at row 0 (``dynamic_update_slice`` in the reference, no
+    kernel: a plain tensor copy here)."""
+    buf = torch.zeros((x.shape[0], buf_rows, x.shape[2]), dtype=x.dtype,
+                      device=x.device)
+    buf[:, : x.shape[1]] = x
+    return buf
+
+
+def reduce_scatterv_shard(x: torch.Tensor, plan: ReduceScattervPlan, mesh,
+                          tables=None) -> torch.Tensor:
+    """Reduce_scatterv over ``mesh`` on device tensors.  ``x``:
+    ``(n_local, in_rows, F)``, each held rank's full flat contribution.
+    Returns ``(n_local, cap, F)``; rows ``[0:sizes[r]]`` of rank ``r``
+    hold ``sum_i x_i[offsets[r]: offsets[r]+sizes[r]]`` in the plan's
+    fold order.  The owned block is read back with K1, as in
+    ``scatterv_shard``."""
+    tables = _tables_for(plan, mesh, tables)
+    _check_input(x, plan.in_rows, mesh)
+    buf = _apply_steps(_contribution_buffer(x, plan.buf_rows),
+                       tables.walks[0], mesh, reduce=True)
+    extract, _, _ = _slab_ops(buf)
+    return extract(buf, tables.offsets, plan.cap)
+
+
+def allreducev_shard(x: torch.Tensor, plan: AllreducevPlan, mesh,
+                     tables=None) -> torch.Tensor:
+    """Allreducev over ``mesh`` on device tensors.  ``x``: ``(n_local,
+    in_rows, F)`` flat contributions.  Returns ``(n_local, buf_rows,
+    F)``; rows ``[0:total]`` hold the reduced vector on EVERY rank.  One
+    buffer of ``max(rs.buf_rows, ag.buf_rows)`` rows end to end: the
+    reduce walk leaves owner ``r``'s block at ``offsets[r]``, the
+    allgatherv start state, and the gather walk overwrites from there."""
+    tables = _tables_for(plan, mesh, tables)
+    _check_input(x, plan.in_rows, mesh)
+    buf = _apply_steps(_contribution_buffer(x, plan.buf_rows),
+                       tables.walks[0], mesh, reduce=True)
+    return _apply_steps(buf, tables.walks[1], mesh)
 
 
 # --------------------------------------------------------------------------
@@ -519,6 +1008,22 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _torch_dtype(a: np.ndarray) -> torch.dtype:
+    return torch.from_numpy(np.ascontiguousarray(a[:0])).dtype
+
+
+def _held_rows(mesh, shape_rows: int, F: int, dtype, fill) -> torch.Tensor:
+    """``(n_local, shape_rows, F)`` zeros on the mesh's device with
+    ``fill(r)`` (a ``(n, F)`` numpy array) written at row 0 of each held
+    rank ``r``."""
+    x = torch.zeros((len(mesh.ranks), shape_rows, F), dtype=dtype,
+                    device=mesh.device)
+    for i, r in enumerate(mesh.ranks):
+        a = fill(r)
+        x[i, : len(a)] = torch.from_numpy(np.ascontiguousarray(a))
+    return x
+
+
 def run_gatherv(mesh, blocks: list[np.ndarray], root: int,
                 bucket_rounds: int = 1, segments: int = 1,
                 wave_bin_ratio: float = 0.0, tree: GatherTree | None = None):
@@ -535,11 +1040,8 @@ def run_gatherv(mesh, blocks: list[np.ndarray], root: int,
     plan = plan_gatherv(sizes, root, tree=tree, bucket_rounds=bucket_rounds,
                         segments=segments, wave_bin_ratio=wave_bin_ratio)
     tables = _tables_for(plan, mesh, None)
-    x = torch.zeros((len(mesh.ranks), plan.cap, F),
-                    dtype=torch.from_numpy(blocks[0][:0]).dtype,
-                    device=mesh.device)
-    for i, r in enumerate(mesh.ranks):
-        x[i, : sizes[r]] = torch.from_numpy(np.ascontiguousarray(blocks[r]))
+    x = _held_rows(mesh, plan.cap, F, _torch_dtype(blocks[0]),
+                   lambda r: blocks[r])
 
     def run():
         buf = gatherv_shard(x, plan, mesh, tables)
@@ -564,8 +1066,7 @@ def run_scatterv(mesh, data: np.ndarray, sizes: list[int], root: int,
     tables = _tables_for(plan, mesh, None)
     F = data.shape[1]
     xin = torch.zeros((len(mesh.ranks), plan.buf_rows, F),
-                      dtype=torch.from_numpy(data[:0]).dtype,
-                      device=mesh.device)
+                      dtype=_torch_dtype(data), device=mesh.device)
     if root in mesh.ranks:
         xin[mesh.ranks.index(root), : plan.total] = torch.from_numpy(
             np.ascontiguousarray(data))
@@ -577,4 +1078,123 @@ def run_scatterv(mesh, data: np.ndarray, sizes: list[int], root: int,
     out = [None] * plan.p
     for i, r in enumerate(mesh.ranks):
         out[r] = own[i, : plan.sizes[r]]
+    return out, plan
+
+
+def run_allgatherv(mesh, blocks: list[np.ndarray], root: int | None = None,
+                   bucket_rounds: int = 1, segments: int = 1,
+                   wave_bin_ratio: float = 0.0,
+                   schedule: ComposedSchedule | None = None):
+    """Host-facing helper: allgatherv ragged ``blocks`` (one ``(n_i, F)``
+    numpy array per rank) over ``mesh``.  Returns ``(out, plan)``:
+    ``out`` is the ``(n_local, total, F)`` numpy array of the rank-ordered
+    copies the ranks held here end with (``(p, total, F)`` on a
+    ``LocalMesh``, as the reference returns it)."""
+    if len(blocks) != mesh.p:
+        raise ValueError(f"{len(blocks)} blocks for a {mesh.p}-rank mesh")
+    sizes = [int(b.shape[0]) for b in blocks]
+    F = blocks[0].shape[1]
+    plan = plan_allgatherv(sizes, root=root, bucket_rounds=bucket_rounds,
+                           segments=segments, wave_bin_ratio=wave_bin_ratio,
+                           schedule=schedule)
+    tables = _tables_for(plan, mesh, None)
+    x = _held_rows(mesh, plan.cap, F, _torch_dtype(blocks[0]),
+                   lambda r: blocks[r])
+
+    def run():
+        buf = allgatherv_shard(x, plan, mesh, tables)
+        return buf[:, : plan.total].cpu().numpy()
+
+    out = _run_traced("allgatherv", plan, F * blocks[0].dtype.itemsize, run)
+    return out, plan
+
+
+def run_alltoallv(mesh, blocks: list[list[np.ndarray]],
+                  bucket_rounds: int = 1, segments: int = 1,
+                  wave_bin_ratio: float = 0.0,
+                  schedule: ComposedSchedule | None = None):
+    """Host-facing helper: ``blocks[i][j]`` is the ``(S[i][j], F)`` block
+    rank ``i`` sends to rank ``j``.  Returns ``(received, plan)``:
+    ``received[j]`` is ``concat_i blocks[i][j]`` for every rank ``j`` held
+    here and ``None`` for ranks other processes hold."""
+    p = len(blocks)
+    if p != mesh.p:
+        raise ValueError(f"{p}x{p} block matrix for a {mesh.p}-rank mesh")
+    S = [[int(b.shape[0]) for b in row] for row in blocks]
+    F = blocks[0][0].shape[1]
+    dtype = blocks[0][0].dtype
+    plan = plan_alltoallv(S, bucket_rounds=bucket_rounds, segments=segments,
+                          wave_bin_ratio=wave_bin_ratio, schedule=schedule)
+    tables = _tables_for(plan, mesh, None)
+    x = _held_rows(mesh, plan.cap, F, _torch_dtype(blocks[0][0]),
+                   lambda r: np.concatenate(blocks[r], axis=0))
+
+    def run():
+        return alltoallv_shard(x, plan, mesh, tables).cpu().numpy()
+
+    own = _run_traced("alltoallv", plan, F * dtype.itemsize, run)
+    out = [None] * p
+    for i, j in enumerate(mesh.ranks):
+        out[j] = own[i, : plan.out_valid[j]]
+    return out, plan
+
+
+def run_reduce_scatterv(mesh, contribs: list[np.ndarray], sizes,
+                        bucket_rounds: int = 1, segments: int = 1,
+                        wave_bin_ratio: float = 0.0,
+                        schedule: ComposedSchedule | None = None):
+    """Host-facing helper: sum the per-rank contribution vectors and
+    scatter ownership.  ``contribs[i]``: ``(total, F)`` flat contribution
+    of rank ``i``; ``sizes[j]`` rows at segment ``j``'s offset go to rank
+    ``j``.  Returns ``(blocks, plan)``: the reduced ``(sizes[j], F)``
+    block of every rank ``j`` held here, ``None`` for the others."""
+    p = len(contribs)
+    if p != mesh.p:
+        raise ValueError(f"{p} contributions for a {mesh.p}-rank mesh")
+    plan = plan_reduce_scatterv(sizes, bucket_rounds=bucket_rounds,
+                                segments=segments,
+                                wave_bin_ratio=wave_bin_ratio,
+                                schedule=schedule)
+    tables = _tables_for(plan, mesh, None)
+    F = contribs[0].shape[1]
+    x = _held_rows(mesh, plan.in_rows, F, _torch_dtype(contribs[0]),
+                   lambda r: contribs[r])
+
+    def run():
+        return reduce_scatterv_shard(x, plan, mesh, tables).cpu().numpy()
+
+    own = _run_traced("reduce_scatterv", plan,
+                      F * contribs[0].dtype.itemsize, run)
+    out = [None] * p
+    for i, j in enumerate(mesh.ranks):
+        out[j] = own[i, : plan.sizes[j]]
+    return out, plan
+
+
+def run_allreducev(mesh, contribs: list[np.ndarray], sizes,
+                   bucket_rounds: int = 1, segments: int = 1,
+                   wave_bin_ratio: float = 0.0,
+                   rs_schedule: ComposedSchedule | None = None,
+                   ag_schedule: ComposedSchedule | None = None):
+    """Host-facing helper: allreducev the per-rank contribution vectors.
+    Returns ``(out, plan)``: ``out`` is the ``(n_local, total, F)`` numpy
+    array of the reduced vector on each rank held here (``(p, total, F)``
+    on a ``LocalMesh``, as the reference returns it)."""
+    p = len(contribs)
+    if p != mesh.p:
+        raise ValueError(f"{p} contributions for a {mesh.p}-rank mesh")
+    plan = plan_allreducev(sizes, bucket_rounds=bucket_rounds,
+                           segments=segments, wave_bin_ratio=wave_bin_ratio,
+                           rs_schedule=rs_schedule, ag_schedule=ag_schedule)
+    tables = _tables_for(plan, mesh, None)
+    F = contribs[0].shape[1]
+    x = _held_rows(mesh, plan.in_rows, F, _torch_dtype(contribs[0]),
+                   lambda r: contribs[r])
+
+    def run():
+        buf = allreducev_shard(x, plan, mesh, tables)
+        return buf[:, : plan.total].cpu().numpy()
+
+    out = _run_traced("allreducev", plan, F * contribs[0].dtype.itemsize,
+                      run)
     return out, plan

@@ -1,4 +1,5 @@
-"""Slab wrappers of the gatherv/scatterv data plane (K1–K3).
+"""Slab wrappers of the data plane: K1–K3 move rows (gatherv, scatterv,
+allgatherv, alltoallv), K4–K5 fold them (reduce_scatterv, allreducev).
 
 A tensor on the CPU goes to the plain PyTorch version in ``ref.py``; a
 CUDA tensor launches the hand-written kernel in ``kernel.py`` or raises.
@@ -12,7 +13,8 @@ import torch
 
 from . import kernel, ref
 
-LAUNCHES = {"slab_extract": 0, "slab_merge": 0, "slab_step": 0}
+LAUNCHES = {"slab_extract": 0, "slab_merge": 0, "slab_step": 0,
+            "slab_merge_add": 0, "slab_step_reduce": 0}
 
 
 def reset_launches() -> None:
@@ -60,4 +62,31 @@ def slab_step(buf: torch.Tensor, got: torch.Tensor, recv_start: torch.Tensor,
     out = kernel.slab_step_cuda(buf, got, recv_start, recv_valid,
                                 send_start, rows_out)
     LAUNCHES["slab_step"] += 1
+    return out
+
+
+def slab_merge_add(buf: torch.Tensor, slab: torch.Tensor,
+                   start: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """K4, in place: add the ``valid``-row prefix of ``slab`` into ``buf``
+    at ``start``; every other row keeps its bits.  Returns ``buf``."""
+    if not _on_cuda(buf):
+        return ref.slab_merge_add_ref(buf, slab, start, valid)
+    kernel.slab_merge_add_cuda(buf, slab, start, valid)
+    LAUNCHES["slab_merge_add"] += 1
+    return buf
+
+
+def slab_step_reduce(buf: torch.Tensor, got: torch.Tensor,
+                     recv_start: torch.Tensor, recv_valid: torch.Tensor,
+                     send_start: torch.Tensor,
+                     rows_out: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5: fold ``got`` into ``buf`` in place, then extract the next
+    ``rows_out`` rows at ``send_start`` from the updated buffer.  Returns
+    ``(buf, slab)``."""
+    if not _on_cuda(buf):
+        return ref.slab_step_reduce_ref(buf, got, recv_start, recv_valid,
+                                        send_start, rows_out)
+    out = kernel.slab_step_reduce_cuda(buf, got, recv_start, recv_valid,
+                                       send_start, rows_out)
+    LAUNCHES["slab_step_reduce"] += 1
     return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the slab kernels K1–K3, batched over ranks.
+"""Plain PyTorch versions of the slab kernels K1–K5, batched over ranks.
 
 Every tensor carries a leading rank axis ``P``: ``buf (P, buf_rows, F)``,
 ``slab (P, rows, F)``, and one int32 offset per rank (``(P,)`` tensors).
@@ -9,8 +9,10 @@ then the start is clamped to ``[0, buf_rows - rows]`` (a Python slice
 would truncate instead).  ``place(start)`` below names that row.
 ``valid`` is clamped to ``[0, rows]``.
 
-Unlike the functional JAX oracles, ``slab_merge_ref`` and
-``slab_step_ref`` update ``buf`` in place (and return it).  These are
+Unlike the functional JAX oracles, the merge and step functions update
+``buf`` in place (and return it).  K4/K5 add in the working dtype, as
+PyTorch adds on the device it runs on: IEEE float32, bf16 computed in
+float32 and rounded once to nearest even, int32 wrapping.  These are
 the CPU path of the wrappers in ``ops.py`` and the yardstick the CUDA
 kernels are held against on the card.
 """
@@ -70,4 +72,34 @@ def slab_step_ref(buf: torch.Tensor, got: torch.Tensor,
     rows at ``send_start`` from the MERGED buffer (K1).  Returns
     ``(buf, next_slab)``."""
     slab_merge_ref(buf, got, recv_start, recv_valid)
+    return buf, slab_extract_ref(buf, send_start, rows_out)
+
+
+def slab_merge_add_ref(buf: torch.Tensor, slab: torch.Tensor,
+                       start: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """K4, in place: ``buf[r, place(start[r]) + i] += slab[r, i]`` for
+    ``i < clamp(valid[r], 0, rows)``.  Masked rows select ``cur`` outright
+    (``cur + 0`` would turn ``-0.0`` into ``+0.0``), so every other row
+    keeps its bits."""
+    P, rows, F = slab.shape
+    _check(buf, rows)
+    idx = _window(buf, start, rows)
+    flat = buf.view(-1, F)
+    cur = flat.index_select(0, idx.reshape(-1)).view(P, rows, F)
+    nv = valid.to(torch.int64).clamp(0, rows)
+    mask = torch.arange(rows, device=buf.device)[None, :] < nv[:, None]
+    flat.index_copy_(0, idx.reshape(-1),
+                     torch.where(mask[..., None], cur + slab, cur).view(-1, F))
+    return buf
+
+
+def slab_step_reduce_ref(buf: torch.Tensor, got: torch.Tensor,
+                         recv_start: torch.Tensor, recv_valid: torch.Tensor,
+                         send_start: torch.Tensor,
+                         rows_out: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5: fold ``got`` into ``buf`` in place (K4), then extract the next
+    ``rows_out`` rows at ``send_start`` from the UPDATED buffer (K1): a
+    root-ward forward carries the contribution that just arrived.
+    Returns ``(buf, next_slab)``."""
+    slab_merge_add_ref(buf, got, recv_start, recv_valid)
     return buf, slab_extract_ref(buf, send_start, rows_out)

@@ -19,8 +19,19 @@ import repro_torch as rt
 from repro_torch.core.distributions import block_sizes
 blocks = [np.full((s, 4), i, np.float32)
           for i, s in enumerate(block_sizes("spikes", 8, 5, seed=1))]
-got, _ = rt.run_gatherv(rt.LocalMesh(8, device="cpu"), blocks, 3, segments=2)
+mesh = rt.LocalMesh(8, device="cpu")
+got, _ = rt.run_gatherv(mesh, blocks, 3, segments=2)
 assert (got == np.concatenate(blocks)).all()
+got, _ = rt.run_allgatherv(mesh, blocks, segments=2)
+assert (got == np.concatenate(blocks)).all()
+got, _ = rt.run_alltoallv(mesh, [blocks] * 8)
+assert (got[2] == np.concatenate([blocks[2]] * 8)).all()
+sizes = [len(b) for b in blocks]
+contribs = [np.concatenate(blocks)] * 8
+got, _ = rt.run_reduce_scatterv(mesh, contribs, sizes, segments=2)
+assert (got[0] == 8 * blocks[0]).all()
+got, _ = rt.run_allreducev(mesh, contribs, sizes)
+assert (got == 8 * np.concatenate(blocks)).all()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)

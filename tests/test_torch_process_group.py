@@ -1,12 +1,17 @@
-"""The port's gatherv/scatterv over ``ProcessGroupMesh``: one rank per
+"""The port's collectives over ``ProcessGroupMesh``: one rank per
 process, exchanges through ``torch.distributed`` (gloo on the CPU).
 
-The test runs this file as a script in a subprocess with a hard timeout;
-the script spawns 8 ranks that meet through a file store under the
-test's own ``tmp_path`` (so parallel test workers never share a port) and
-sweep every distribution × roots {0, 3, 7} × bucket {1, 3} × segments
-{1, 4}, holding every result bitwise against ``np.concatenate`` and the
-input blocks.  Rank 0 prints the line the test looks for.
+Each test runs this file as a script in a subprocess with a hard
+timeout; the script spawns 8 ranks that meet through a file store under
+the test's own ``tmp_path`` (so parallel test workers never share a
+port).  The gather lane sweeps gatherv/scatterv over every distribution ×
+roots {0, 3, 7} × bucket {1, 3} × segments {1, 4}, holding every result
+bitwise against ``np.concatenate`` and the input blocks.  The reduce lane
+sweeps reduce_scatterv/allreducev over every distribution × fp32/int32 ×
+segments {1, 4} × bucket {1, 2}, holding every rank's result bitwise
+against the port's NumPy executors (the fold order is the plan's, so the
+tolerance is 0) and S = 4 against S = 1.  Rank 0 prints the line the test
+looks for.
 """
 import os
 import signal
@@ -22,13 +27,87 @@ WORLD = 8
 TIMEOUT_S = 300
 
 
-def _worker(rank: int, init_file: str) -> None:
+def _gather_lane(rank: int, mesh) -> str:
+    import repro_torch as rt
+    from repro_torch.core.distributions import NAMES, block_sizes
+
+    n = 0
+    for name in NAMES:
+        # every rank makes the same blocks from the seed; each reads
+        # only its own, and the root checks the gathered result
+        rng = np.random.default_rng(len(name))
+        blocks = [rng.standard_normal((s, 4)).astype(np.float32)
+                  for s in block_sizes(name, WORLD, 7, seed=1)]
+        sizes = [len(b) for b in blocks]
+        want = np.concatenate(blocks)
+        for root in (0, 3, 7):
+            for bucket_rounds in (1, 3):
+                for segments in (1, 4):
+                    kw = dict(bucket_rounds=bucket_rounds,
+                              segments=segments)
+                    got, _ = rt.run_gatherv(mesh, blocks, root, **kw)
+                    if rank == root:
+                        np.testing.assert_array_equal(got, want)
+                    else:
+                        assert got is None
+                    outs, _ = rt.run_scatterv(mesh, want, sizes, root,
+                                              **kw)
+                    np.testing.assert_array_equal(outs[rank],
+                                                  blocks[rank])
+                    assert all(o is None for r, o in enumerate(outs)
+                               if r != rank)
+                    n += 1
+    return f"{n} cases x {WORLD} ranks: PROCESS GROUP LANE PASSED"
+
+
+def _reduce_lane(rank: int, mesh) -> str:
+    import repro_torch as rt
+    from repro_torch.core.distributions import NAMES, block_sizes
+    from repro_torch.core.pipeline import (execute_allreducev_plan_numpy,
+                                           execute_reduce_scatterv_plan_numpy)
+
+    n = 0
+    for name in NAMES:
+        sizes = block_sizes(name, WORLD, 7, seed=2)
+        total = sum(sizes)
+        for dtype in (np.float32, np.int32):
+            # every rank makes every contribution from the seed and reads
+            # only its own; the oracle needs them all
+            rng = np.random.default_rng(len(name))
+            if dtype == np.int32:
+                contribs = [rng.integers(-2**31, 2**31 - 1, size=(total, 3),
+                                         dtype=np.int32)
+                            for _ in range(WORLD)]
+            else:
+                contribs = [rng.standard_normal((total, 3)).astype(dtype)
+                            for _ in range(WORLD)]
+            mono = None
+            for segments in (1, 4):
+                for bucket_rounds in (1, 2):
+                    kw = dict(bucket_rounds=bucket_rounds, segments=segments)
+                    outs, plan = rt.run_reduce_scatterv(mesh, contribs, sizes,
+                                                        **kw)
+                    want = execute_reduce_scatterv_plan_numpy(plan, contribs)
+                    np.testing.assert_array_equal(outs[rank], want[rank])
+                    assert all(o is None for r, o in enumerate(outs)
+                               if r != rank)
+                    mono = outs[rank] if mono is None else mono
+                    np.testing.assert_array_equal(outs[rank], mono)
+                    out, plan = rt.run_allreducev(mesh, contribs, sizes, **kw)
+                    assert out.shape == (1, total, 3)
+                    np.testing.assert_array_equal(
+                        out[0], execute_allreducev_plan_numpy(plan,
+                                                              contribs)[rank])
+                    n += 1
+    return f"{n} cases x {WORLD} ranks: PROCESS GROUP REDUCE LANE PASSED"
+
+
+def _worker(rank: int, init_file: str, lane: str) -> None:
     from datetime import timedelta
 
     import torch.distributed as dist
 
     import repro_torch as rt
-    from repro_torch.core.distributions import NAMES, block_sizes
 
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=WORLD,
@@ -36,43 +115,18 @@ def _worker(rank: int, init_file: str) -> None:
     try:
         mesh = rt.ProcessGroupMesh(device="cpu")
         assert mesh.ranks == (rank,) and mesh.p == WORLD
-        n = 0
-        for name in NAMES:
-            # every rank makes the same blocks from the seed; each reads
-            # only its own, and the root checks the gathered result
-            rng = np.random.default_rng(len(name))
-            blocks = [rng.standard_normal((s, 4)).astype(np.float32)
-                      for s in block_sizes(name, WORLD, 7, seed=1)]
-            sizes = [len(b) for b in blocks]
-            want = np.concatenate(blocks)
-            for root in (0, 3, 7):
-                for bucket_rounds in (1, 3):
-                    for segments in (1, 4):
-                        kw = dict(bucket_rounds=bucket_rounds,
-                                  segments=segments)
-                        got, _ = rt.run_gatherv(mesh, blocks, root, **kw)
-                        if rank == root:
-                            np.testing.assert_array_equal(got, want)
-                        else:
-                            assert got is None
-                        outs, _ = rt.run_scatterv(mesh, want, sizes, root,
-                                                  **kw)
-                        np.testing.assert_array_equal(outs[rank],
-                                                      blocks[rank])
-                        assert all(o is None for r, o in enumerate(outs)
-                                   if r != rank)
-                        n += 1
+        line = (_reduce_lane if lane == "reduce" else _gather_lane)(rank, mesh)
         dist.barrier()
         if rank == 0:
-            print(f"{n} cases x {WORLD} ranks: PROCESS GROUP LANE PASSED",
-                  flush=True)
+            print(line, flush=True)
     finally:
         dist.destroy_process_group()
 
 
-def test_process_group_mesh_gloo_lane(child_env, tmp_path):
+def _run_lane(child_env, tmp_path, lane: str) -> str:
     proc = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), str(tmp_path / "pg")],
+        [sys.executable, os.path.abspath(__file__), str(tmp_path / "pg"),
+         lane],
         env=child_env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, start_new_session=True)
     try:
@@ -80,13 +134,23 @@ def test_process_group_mesh_gloo_lane(child_env, tmp_path):
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)  # the launcher and its ranks
         out, err = proc.communicate()
-        pytest.fail(f"gloo lane hung past {TIMEOUT_S} s\n{out}\n{err}")
+        pytest.fail(f"gloo {lane} lane hung past {TIMEOUT_S} s\n{out}\n{err}")
     assert proc.returncode == 0, f"STDOUT:\n{out}\nSTDERR:\n{err}"
-    assert "PROCESS GROUP LANE PASSED" in out
+    return out
+
+
+def test_process_group_mesh_gloo_lane(child_env, tmp_path):
+    assert "PROCESS GROUP LANE PASSED" in _run_lane(child_env, tmp_path,
+                                                    "gather")
+
+
+def test_process_group_mesh_gloo_reduce_lane(child_env, tmp_path):
+    assert "PROCESS GROUP REDUCE LANE PASSED" in _run_lane(child_env, tmp_path,
+                                                           "reduce")
 
 
 if __name__ == "__main__":
     import torch.multiprocessing as mp
 
-    mp.start_processes(_worker, args=(sys.argv[1],), nprocs=WORLD,
-                       start_method="spawn")
+    mp.start_processes(_worker, args=(sys.argv[1], sys.argv[2]),
+                       nprocs=WORLD, start_method="spawn")

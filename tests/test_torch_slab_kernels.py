@@ -144,8 +144,11 @@ def test_cpu_tensors_never_launch_kernels():
     ops.slab_extract(buf, z, 3)
     ops.slab_merge(buf, torch.ones((2, 3, 4)), z, z + 3)
     ops.slab_step(buf, torch.ones((2, 3, 4)), z, z + 3, z, 2)
+    ops.slab_merge_add(buf, torch.ones((2, 3, 4)), z, z + 3)
+    ops.slab_step_reduce(buf, torch.ones((2, 3, 4)), z, z + 3, z, 2)
     assert ops.LAUNCHES == {"slab_extract": 0, "slab_merge": 0,
-                            "slab_step": 0}
+                            "slab_step": 0, "slab_merge_add": 0,
+                            "slab_step_reduce": 0}
 
 
 def test_slab_ops_reject_oversized_slab():
