@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py        # from the root of the repository
 
-Needs one CUDA device and ``nvcc`` (the slab kernels are built from
-``src/repro_torch/kernels/ragged_gather/csrc/slab.cu`` and
-``slab_reduce.cu`` on first use, one ``nvcc`` each, both at once).
+Needs one CUDA device and ``nvcc`` (the kernels are built from
+``src/repro_torch/kernels/ragged_gather/csrc/slab.cu``, ``slab_reduce.cu``
+and ``pack.cu`` on first use, one ``nvcc`` each, all at once).
 Phases, in order; any failure raises and the exit code is nonzero:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the
@@ -33,7 +33,21 @@ Phases, in order; any failure raises and the exit code is nonzero:
    the same plans at F=16 bitwise against the port's NumPy executors,
    S=4 bitwise equal to S=1, and ``run_allgatherv`` / ``run_alltoallv``
    bitwise against ``np.concatenate``; every ``*_shard`` timed on device
-   tensors; K1–K5 must have been launched.
+   tensors; K1–K5 must have been launched;
+6. the MoE path, Mixtral-8x7B's MoE layer at its published widths
+   (d_model 4096, 8 experts, top-2, d_ff 14336, capacity factor 1.25,
+   bf16 experts, fp32 router; random weights from the seed) on a batch
+   of 4 × 1024 tokens: (a) K6/K7 bitwise against their plain versions at
+   the layer's dispatch, combine and unpack shapes (bf16 D=4096) and at
+   fp32 F=1024 and F=7, timed beside their bound and the library call;
+   (b) ``moe_apply`` through the kernels bitwise against the same call on
+   the plain versions, and within 2e-2 (relative Frobenius) of an fp32
+   recomputation of 64 tokens from the layer's routing tables; (c) the
+   expert exchange of ``examples/moe_irregular.py`` on ``LocalMesh(8)``
+   (device j owns expert j): ``pack_blocks`` → ``alltoallv_shard`` →
+   ``unpack_blocks`` equal to the dispatch buffers, and ``pack_blocks`` →
+   ``gatherv_shard`` → ``unpack_blocks`` equal to the expert outputs in
+   their kept rows, bitwise; K1–K3, K6 and K7 must have been launched.
 
 The line before the last is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -60,19 +74,30 @@ ADD_OPS_PER_S = 67e12
 P, B, F, SEED = 16, 2048, 1024, 0
 ROOTS, SEGMENTS = (0, 7, 15), (1, 4)
 KERNEL_REPS, PATH_REPS = 20, 5
+L2_FLUSH_BYTES = 256 << 20   # five times the H100's 50 MB L2 (cold_ms)
 ORACLE_F = 16          # width of the NumPy-oracle check of phase 5
 A2A_B = 128            # alltoallv: S[i][j] = block_sizes(name, P, A2A_B, i)[j]
+MOE_ARCH, MOE_B, MOE_S = "mixtral-8x7b", 4, 1024
+MOE_DTYPE = torch.bfloat16   # expert weights and activations; router fp32
+MOE_P = 8              # LocalMesh of the expert exchange: device j owns expert j
+MOE_REF_TOKENS = 64    # tokens of the fp32 recomputation
+MOE_REF_TOL = 2e-2     # relative Frobenius error of the bf16 layer vs fp32
+ODD_F = 7              # the odd width of phase 6a: 28-byte fp32 rows
 CSRC = "src/repro_torch/kernels/ragged_gather/csrc/"
 SOURCES = {"slab_extract": CSRC + "slab.cu", "slab_merge": CSRC + "slab.cu",
            "slab_step": CSRC + "slab.cu",
            "slab_merge_add": CSRC + "slab_reduce.cu",
-           "slab_step_reduce": CSRC + "slab_reduce.cu"}
+           "slab_step_reduce": CSRC + "slab_reduce.cu",
+           "ragged_gather": CSRC + "pack.cu",
+           "ragged_scatter": CSRC + "pack.cu"}
 REPLACES = {"slab_extract": "src/repro/kernels/ragged_gather/kernel.py:123",
             "slab_merge": "src/repro/kernels/ragged_gather/kernel.py:277",
             "slab_step": "src/repro/kernels/ragged_gather/kernel.py:168",
             "slab_merge_add": "src/repro/kernels/ragged_gather/kernel.py:208",
             "slab_step_reduce":
-                "src/repro/kernels/ragged_gather/kernel.py:247"}
+                "src/repro/kernels/ragged_gather/kernel.py:247",
+            "ragged_gather": "src/repro/kernels/ragged_gather/kernel.py:53",
+            "ragged_scatter": "src/repro/kernels/ragged_gather/kernel.py:92"}
 
 
 def log(*a) -> None:
@@ -93,6 +118,28 @@ def median_ms(fn, reps: int) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def cold_ms(fn, reps: int) -> float:
+    """Median device time of ``fn`` over ``reps`` runs, by CUDA events,
+    after one warm-up run, with the L2 cache flushed before each run: a
+    buffer five times the L2 is zeroed just before the first event, so
+    the inputs come from HBM, and the host enqueues ``fn`` while the card
+    still clears it (about 0.1 ms), so a kernel of a few microseconds is
+    timed without its wrapper's host cost."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        flush.zero_()
         a.record()
         fn()
         b.record()
@@ -582,6 +629,290 @@ def reduce_composed_path(dev) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------- phase 6
+
+def moe_setup(dev):
+    """The MoE layer of ``MOE_ARCH`` at its published widths with random
+    weights from the seed, a random batch, and the layer's routing tables
+    for it (the same ``route`` call on the same logits as inside)."""
+    import repro_torch as rt
+    from repro_torch.models import capacity_for, route
+
+    cfg = rt.get_config(MOE_ARCH)
+    layer = rt.MoE(cfg.d_model, cfg.moe, dtype=MOE_DTYPE, device=dev,
+                   seed=SEED)
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    x = torch.randn((MOE_B, MOE_S, cfg.d_model), generator=g,
+                    device=dev).to(MOE_DTYPE)
+    T = MOE_B * MOE_S
+    C = capacity_for(cfg.moe, T)
+    logits = torch.matmul(x.reshape(1, T, -1).float(), layer.router)
+    return cfg, layer, x, route(logits, cfg.moe.top_k, C)
+
+
+def _pack_case(label: str, kfn, pfn, lfn, nbytes: int) -> dict:
+    """One K6/K7 case: bitwise against the plain version, then timed
+    (``cold_ms``) beside its bound (bytes over the HBM rate) and the
+    library call."""
+    err = bitwise_err(kfn(), pfn())
+    if err != 0.0:
+        raise AssertionError(f"{label} differs from its plain version: "
+                             f"max abs err {err}")
+    ms = cold_ms(kfn, KERNEL_REPS)
+    plain_ms = cold_ms(pfn, KERNEL_REPS)
+    lib_ms = cold_ms(lfn, KERNEL_REPS)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  {label:38s} bytes={nbytes} kernel_ms={ms:.4f} "
+        f"bound_ms={bound_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms:.4f} max_abs_err={err}")
+    return {"case": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
+            "bytes": nbytes}
+
+
+def gather_case(label: str, x: torch.Tensor, idx: torch.Tensor) -> dict:
+    """K6 on ``x`` by ``idx``; the library call is ``index_select`` with
+    the clipped index prepared outside the timing.  Bytes: each distinct
+    source row that this ``idx`` reads, read once; each output row
+    written once; the index."""
+    from repro_torch.kernels.ragged_gather import ops, ref
+
+    safe = idx.long().clamp(0, x.shape[0] - 1)
+    row = x.shape[1] * x.element_size()
+    distinct = int(torch.unique(safe).numel())
+    return _pack_case(label, lambda: ops.ragged_gather(x, idx),
+                      lambda: ref.ragged_gather_ref(x, idx),
+                      lambda: torch.index_select(x, 0, safe),
+                      (distinct + idx.numel()) * row + 4 * idx.numel())
+
+
+def scatter_case(label: str, x: torch.Tensor, idx: torch.Tensor,
+                 n_out: int) -> dict:
+    """K7 of ``x`` to ``idx`` over ``n_out`` zero rows; the library call
+    is ``index_copy_`` into a zeroed buffer with a trash row (out-of-range
+    destinations mapped there outside the timing).  Bytes: the output
+    written once, the in-range rows read once, the index."""
+    from repro_torch.kernels.ragged_gather import ops, ref
+
+    keep = (idx >= 0) & (idx < n_out)
+    safe = torch.where(keep, idx.long(), n_out)
+    row = x.shape[1] * x.element_size()
+    nbytes = (n_out + int(keep.sum())) * row + 4 * idx.numel()
+    return _pack_case(
+        label, lambda: ops.ragged_scatter(x, idx, n_out),
+        lambda: ref.ragged_scatter_ref(x, idx, n_out),
+        lambda: torch.zeros((n_out + 1, x.shape[1]), dtype=x.dtype,
+                            device=x.device).index_copy_(0, safe, x),
+        nbytes)
+
+
+def pack_kernel_phase(dev, x: torch.Tensor, r, record: dict) -> list[dict]:
+    """Phase 6a: K6 at the layer's dispatch gather (``xz`` by ``disp``) and
+    combine gather (``ye`` by the pairs' slots), K7 at ``unpack_blocks``'
+    shape, in the layer's bf16 at D and in fp32 at F=1024 and F=7."""
+    from repro_torch.kernels.ragged_gather import ref
+
+    T, D = x.shape[0] * x.shape[1], x.shape[2]
+    E, C = r.disp.shape[1:]
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    disp = r.disp.reshape(-1).to(torch.int32)
+    comb = (r.eid * C + r.pos.clamp(max=C - 1)).reshape(-1).to(torch.int32)
+    kept = r.counts[0].clamp(max=C).to(torch.int32)
+    total = int(kept.sum())
+    unpack = ref.build_pack_index(kept, C, total)
+    xz = torch.cat([x.reshape(T, D), x.new_zeros((1, D))])
+    ye = torch.randn((E * C, D), generator=g, device=dev).to(x.dtype)
+    packed = torch.randn((total, D), generator=g, device=dev).to(x.dtype)
+    cases = [gather_case(f"ragged_gather dispatch {x.dtype} D={D}", xz, disp),
+             gather_case(f"ragged_gather combine {x.dtype} D={D}", ye, comb),
+             scatter_case(f"ragged_scatter unpack {x.dtype} D={D}", packed,
+                          unpack, E * C)]
+    for name, case in (("ragged_gather", cases[0]),
+                       ("ragged_scatter", cases[2])):
+        record[name] = {"name": name, "route": "cuda",
+                        "source": SOURCES[name], "replaces": REPLACES[name],
+                        "launches": 0,
+                        **{k: case[k] for k in ("max_abs_err", "ms",
+                                                "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")}}
+    del ye, packed
+    for f in (F, ODD_F):
+        src = torch.randn((T + 1, f), generator=g, device=dev)
+        cases.append(gather_case(f"ragged_gather dispatch fp32 F={f}", src,
+                                 disp))
+        rows = torch.randn((total, f), generator=g, device=dev)
+        cases.append(scatter_case(f"ragged_scatter unpack fp32 F={f}", rows,
+                                  unpack, E * C))
+    torch.cuda.empty_cache()
+    return cases
+
+
+def moe_reference_error(layer, x: torch.Tensor, r, n_tokens: int) -> float:
+    """Relative Frobenius error of the layer's first ``n_tokens`` outputs
+    against an fp32 recomputation from the routing tables ``r``: each kept
+    (token, expert) pair adds ``prob × SwiGLU_e(x_t)`` with fp32 weights."""
+    import torch.nn.functional as Fn
+
+    out, _ = layer(x)
+    D = x.shape[-1]
+    got = out.reshape(-1, D)[:n_tokens].float()
+    xt = x.reshape(-1, D)[:n_tokens].float()
+    sel = r.keep[0] & (r.tid[0] < n_tokens)
+    eid, tid, prob = r.eid[0][sel], r.tid[0][sel], r.prob[0][sel]
+    want = torch.zeros_like(got)
+    for e in range(layer.wi.shape[0]):
+        m = eid == e
+        t = tid[m]
+        xe = xt[t]
+        h = Fn.silu(xe @ layer.wi[e].float()) * (xe @ layer.wg[e].float())
+        want.index_add_(0, t, (h @ layer.wo[e].float()) * prob[m][:, None])
+    return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+
+
+def moe_path(dev, layer, x: torch.Tensor, r) -> tuple[dict, dict]:
+    """Phase 6b and 6c, the main path: the layer through the kernels, then
+    the expert exchange of its dispatch buffers and expert outputs.
+    Returns the numbers and the thunks of the layer and the two exchanges
+    (for the profile that follows)."""
+    import repro_torch as rt
+    from repro_torch.core.carry import plan_tensors
+    from repro_torch.kernels.ragged_gather import ops
+    from repro_torch.models import dispatch, experts
+
+    # (b) the layer, kernels against plain versions, and against fp32;
+    # one call launches K6 twice (the dispatch and the combine gather)
+    before = dict(ops.LAUNCHES)
+    out, aux = layer(x)
+    once = {k: n - before[k] for k, n in ops.LAUNCHES.items()}
+    if once != {**dict.fromkeys(once, 0), "ragged_gather": 2}:
+        raise AssertionError(f"one moe_apply launched {once}, not K6 twice")
+    rt.use_kernel_dataplane(False)
+    try:
+        want, waux = layer(x)
+        plain_ms = median_ms(lambda: layer(x), PATH_REPS)
+    finally:
+        rt.use_kernel_dataplane(None)
+    for what, a, b in (("out", out, want), ("load", aux["load"], waux["load"]),
+                       ("dropped", aux["dropped"], waux["dropped"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"moe_apply {what} through the kernels "
+                                 f"differs from the plain versions")
+    if not torch.isfinite(out).all() or out.shape != x.shape:
+        raise AssertionError("moe_apply gave non-finite values or a shape "
+                             f"{tuple(out.shape)} for {tuple(x.shape)}")
+    rel = moe_reference_error(layer, x, r, MOE_REF_TOKENS)
+    if not rel <= MOE_REF_TOL:
+        raise AssertionError(f"moe_apply vs fp32 recomputation of "
+                             f"{MOE_REF_TOKENS} tokens: relative error {rel} "
+                             f"> {MOE_REF_TOL}")
+    moe_ms = median_ms(lambda: layer(x), PATH_REPS)
+    del want, out
+    load = aux["load"].cpu().numpy()
+    E, C = r.disp.shape[1:]
+    D = x.shape[-1]
+    cfg = layer.cfg
+    T = x.shape[0] * x.shape[1]
+    flops = 3 * 2 * E * C * D * cfg.d_ff
+    log(f"  moe_apply {MOE_ARCH} T={T} E={E} C={C} D={D} d_ff={cfg.d_ff} "
+        f"load={load.tolist()} dropped={int(aux['dropped'])} "
+        f"ms={moe_ms:.4f} plain_ms={plain_ms:.4f} expert_TFLOP={flops / 1e12:.3f} "
+        f"fp32_rel_err={rel:.3e} (limit {MOE_REF_TOL})")
+
+    # (c) the expert exchange: device j owns expert j; expert j's kept rows
+    # are split over MOE_P data shards as in examples/moe_irregular.py
+    if E != MOE_P:
+        raise ValueError(f"the exchange puts one expert on each of "
+                         f"{MOE_P} devices, the layer has {E}")
+    xe = dispatch(x.reshape(1, T, D), r)[0]                   # (E, C, D)
+    ye = experts(layer.params, xe[None])[0]
+    kept_h = np.minimum(load, C).astype(np.int64)
+    kept = torch.from_numpy(kept_h.astype(np.int32)).to(dev)
+    total = int(kept_h.sum())
+    S = np.zeros((MOE_P, E), np.int64)
+    for j, k in enumerate(kept_h):
+        base, rem = divmod(int(k), MOE_P)
+        S[:, j] = base
+        S[:rem, j] += 1
+    mesh = rt.LocalMesh(MOE_P, device=dev)
+    a2a = rt.plan_alltoallv(S.tolist())
+    a2a_tables = plan_tensors(a2a, dev)
+    # rank i sends, for each expert j, its share of j's packed rows; the
+    # send rows are one K6 gather from the packed rows and a zero row
+    first = np.concatenate([[0], np.cumsum(kept_h)[:-1]])
+    share = np.cumsum(S, axis=0) - S                 # start of shard i in j
+    send = np.full((MOE_P, a2a.cap), total, np.int64)
+    for i in range(MOE_P):
+        rows = np.concatenate([first[j] + share[i, j] + np.arange(S[i, j])
+                               for j in range(E)])
+        send[i, : len(rows)] = rows
+    send_idx = torch.from_numpy(send.reshape(-1).astype(np.int32)).to(dev)
+    gplan = rt.plan_gatherv(kept_h.tolist(), 0)
+    g_tables = plan_tensors(gplan, dev)
+
+    def dispatch_exchange():
+        packed = rt.pack_blocks(xe, kept, total)
+        src = torch.cat([packed, packed.new_zeros((1, D))])
+        x_a2a = ops.ragged_gather(src, send_idx).view(MOE_P, a2a.cap, D)
+        recv = rt.alltoallv_shard(x_a2a, a2a, mesh, a2a_tables)
+        got = rt.pack_blocks(recv, kept, total)
+        return packed, got, rt.unpack_blocks(got, kept, C)
+
+    def combine_exchange():
+        packed = rt.pack_blocks(ye, kept, total)
+        blocks = rt.unpack_blocks(packed, kept, gplan.cap)
+        buf = rt.gatherv_shard(blocks, gplan, mesh, g_tables)
+        return rt.unpack_blocks(buf[0, :total].contiguous(), kept, C)
+
+    packed, got, back = dispatch_exchange()
+    if not torch.equal(got, packed):
+        raise AssertionError("alltoallv did not deliver each expert's rows "
+                             "to its device in order")
+    if not torch.equal(back, xe):
+        raise AssertionError("pack -> alltoallv -> unpack differs from the "
+                             "dispatch buffers")
+    back = combine_exchange()
+    live = torch.arange(C, device=dev)[None, :] < kept[:, None]
+    if not torch.equal(back[live], ye[live]):
+        raise AssertionError("pack -> gatherv -> unpack differs from the "
+                             "expert outputs in their kept rows")
+    del packed, got, back
+    times = {
+        "pack_blocks": median_ms(lambda: rt.pack_blocks(xe, kept, total),
+                                 PATH_REPS),
+        "dispatch_exchange": median_ms(dispatch_exchange, PATH_REPS),
+        "combine_exchange": median_ms(combine_exchange, PATH_REPS)}
+    packed = rt.pack_blocks(xe, kept, total)
+    src = torch.cat([packed, packed.new_zeros((1, D))])
+    x_a2a = ops.ragged_gather(src, send_idx).view(MOE_P, a2a.cap, D)
+    times["alltoallv_shard"] = median_ms(
+        lambda: rt.alltoallv_shard(x_a2a, a2a, mesh, a2a_tables), PATH_REPS)
+    blocks = rt.unpack_blocks(packed, kept, gplan.cap)
+    times["gatherv_shard"] = median_ms(
+        lambda: rt.gatherv_shard(blocks, gplan, mesh, g_tables), PATH_REPS)
+    times["unpack_blocks"] = median_ms(
+        lambda: rt.unpack_blocks(packed, kept, C), PATH_REPS)
+    row_bytes = D * x.element_size()
+    log(f"  exchange kept={kept_h.tolist()} rows={total} "
+        f"alltoallv steps={len(a2a.steps)} exact_rows={a2a.tree_bytes_exact} "
+        f"gatherv steps={len(gplan.steps)} exact_rows={gplan.tree_bytes_exact} "
+        + " ".join(f"{k}_ms={v:.4f}" for k, v in times.items()))
+    del packed, src, x_a2a, blocks
+    torch.cuda.empty_cache()
+    fns = {"moe_apply": lambda: layer(x),
+           "dispatch_exchange": dispatch_exchange,
+           "combine_exchange": combine_exchange}
+    return fns, {
+        "arch": MOE_ARCH, "tokens": T, "experts": E, "capacity": C,
+        "d_model": D, "d_ff": cfg.d_ff, "load": load.tolist(),
+        "dropped": int(aux["dropped"]), "moe_ms": moe_ms,
+        "moe_plain_ms": plain_ms, "expert_flop": flops, "fp32_rel_err": rel,
+        "kept": kept_h.tolist(), "alltoallv_steps": len(a2a.steps),
+        "alltoallv_exact_bytes": a2a.tree_bytes_exact * row_bytes,
+        "gatherv_steps": len(gplan.steps),
+        "gatherv_exact_bytes": gplan.tree_bytes_exact * row_bytes,
+        "exchange_ms": times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the GPU",
@@ -600,12 +931,13 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:   # one nvcc per source, together
+    with ThreadPoolExecutor(3) as pool:   # one nvcc per source, together
         for lib in [pool.submit(kernel.library),
-                    pool.submit(kernel.reduce_library)]:
+                    pool.submit(kernel.reduce_library),
+                    pool.submit(kernel.pack_library)]:
             lib.result()
     log(f"kernel build + load s: {time.perf_counter() - t0:.2f}")
-    for lib in ("slab", "slab_reduce"):
+    for lib in ("slab", "slab_reduce", "pack"):
         for line in _build.BUILD_LOG.get(lib, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas ({lib}):", line.strip())
@@ -649,9 +981,31 @@ def main() -> int:
     log(json.dumps({"profile": prof}))
 
     log("== phase 5: reduction and composed path (LocalMesh(16), bitwise)")
-    rows = main_path_launches("reduction and composed path", tuple(REPLACES),
+    rows = main_path_launches("reduction and composed path",
+                              ("slab_extract", "slab_merge", "slab_step",
+                               "slab_merge_add", "slab_step_reduce"),
                               lambda: reduce_composed_path(dev))
     log(json.dumps({"reduce_composed_path": rows}))
+
+    log("== phase 6: MoE path (Mixtral-8x7B MoE layer, expert exchange on "
+        "LocalMesh(8))")
+    torch.backends.cuda.matmul.allow_tf32 = False    # the fp32 recomputation
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _, layer, x, r = moe_setup(dev)
+    log(f"  weights and batch made in {time.perf_counter() - t0:.2f} s "
+        f"({sum(b.numel() * b.element_size() for b in layer.buffers())} "
+        f"bytes of weights)")
+    cases = pack_kernel_phase(dev, x, r, record)
+    log(json.dumps({"pack_kernels": cases}))
+    fns, moe = main_path_launches("MoE path",
+                                  ("slab_extract", "slab_merge", "slab_step",
+                                   "ragged_gather", "ragged_scatter"),
+                                  lambda: moe_path(dev, layer, x, r))
+    log(json.dumps({"moe_path": moe}))
+    log(json.dumps({"profile": [_profiled("MoE layer and exchange", fns)]}))
+    del layer, x, r, fns
+    torch.cuda.empty_cache()
     for name, n in launches.items():
         record[name]["launches"] = n
 

@@ -1,7 +1,7 @@
-"""The state carried across: a plan as plain data, and its tables on the
-device.
+"""The state carried across: a plan as plain data, its tables on the
+device, and a model layer's weights.
 
-The system has no weights; what a run carries is the plan.
+What a collective carries is its plan.
 :func:`plan_from_numpy` / :func:`plan_to_numpy` move a plan between the
 port and plain ints, tuples and numpy arrays, so a plan built by the JAX
 package (``GathervPlan``, ``ComposedPlan``, ``ReduceScattervPlan`` or
@@ -10,6 +10,11 @@ unchanged.  :func:`plan_tensors` moves a plan's step walks (and
 alltoallv's extract tables) to the device once per plan, so the
 executor's loop makes no host-to-device copy — which also keeps the way
 open to capturing a whole plan in one CUDA graph.
+
+The MoE layer carries weights: :func:`params_from_numpy` takes the JAX
+package's parameter tree as numpy arrays (``jax.tree.map(np.asarray,
+init_moe(...))``) to the port's tensors, so the two packages can be held
+against each other on the same weights.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .mesh import resolve_device
 from .torch_collectives import (AllreducevPlan, ComposedPlan, GathervPlan,
                                 ReduceScattervPlan, _reversed_step_tables)
 
@@ -180,3 +186,24 @@ def plan_tensors(plan, device, ranks=None) -> PlanTensors:
                             device=device),
         walks=tuple(step_tensors(w, plan.p, device, ranks) for w in walks),
         extract=extract)
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.array(a, copy=True)      # the caller's arrays may be read-only
+    if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16, from JAX
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device)
+
+
+def params_from_numpy(tree: dict, device=None) -> dict:
+    """The port's MoE weights from the reference's parameter tree of numpy
+    arrays: ``router``, ``wi``, ``wg``, ``wo`` and, where the layer has
+    shared experts, ``shared`` (``wi``, ``wg``, ``wo``), as tensors on
+    ``device`` (the current CUDA device when ``None``), each in its
+    array's own dtype."""
+    device = resolve_device(device)
+    return {name: ({k: _tensor(v, device) for k, v in a.items()}
+                   if isinstance(a, dict) else _tensor(a, device))
+            for name, a in tree.items()}

@@ -31,7 +31,6 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.ragged_gather import ops as slab_ops
-from repro_torch.kernels.ragged_gather import ref as slab_ref
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import REGISTRY as _OBS_REGISTRY
 
@@ -667,41 +666,27 @@ def plan_allreducev(sizes, bucket_rounds: int = 1, segments: int = 1,
 # device side: slab backend and executors
 # --------------------------------------------------------------------------
 
-# None = kernels exactly when the tensor is on CUDA; True = kernels, and a
-# CPU tensor is an error; False = the plain PyTorch versions everywhere.
-_KERNEL_SLABS: bool | None = None
-
-
 def use_kernel_dataplane(enable: bool | None) -> None:
-    """Select the slab backend of the executors (the counterpart of
-    ``use_pallas_dataplane``).
+    """Select the data-plane backend (the counterpart of
+    ``use_pallas_dataplane``): the slab ops of the executors, the pack
+    ops and the MoE layer's gathers all follow it.
 
-    ``None`` (default) runs the CUDA kernels K1–K5 exactly when the
-    buffer is a CUDA tensor and their plain versions on the CPU; ``True``
-    demands the kernels and raises for a CPU buffer; ``False`` runs the
+    ``None`` (default) runs the CUDA kernels K1–K7 exactly when the
+    tensor is on CUDA and their plain versions on the CPU; ``True``
+    demands the kernels and raises for a CPU tensor; ``False`` runs the
     plain PyTorch versions on any device.
     """
-    global _KERNEL_SLABS
-    _KERNEL_SLABS = enable
+    slab_ops.use_kernels(enable)
 
 
-def _slab_ops(buf: torch.Tensor, reduce: bool = False):
-    """(extract, merge, step) triple for ``buf``'s device: the wrappers of
-    ``kernels.ragged_gather.ops`` (kernels on CUDA, plain versions on the
-    CPU) or, when the kernel dataplane is switched off, ``ref`` itself.
+def _slab_ops(reduce: bool = False):
+    """(extract, merge, step) triple of the wrappers of
+    ``kernels.ragged_gather.ops`` (each picks the kernel or its plain
+    version from its tensor's device and :func:`use_kernel_dataplane`).
     ``reduce=True`` swaps in the fused-add pair (K4 ``slab_merge_add``,
     K5 ``slab_step_reduce``): received slabs fold into the accumulator
     instead of overwriting it, the only difference between the
     byte-moving and the reducing data planes."""
-    if _KERNEL_SLABS is False:
-        if reduce:
-            return (slab_ref.slab_extract_ref, slab_ref.slab_merge_add_ref,
-                    slab_ref.slab_step_reduce_ref)
-        return (slab_ref.slab_extract_ref, slab_ref.slab_merge_ref,
-                slab_ref.slab_step_ref)
-    if _KERNEL_SLABS and buf.device.type != "cuda":
-        raise ValueError("use_kernel_dataplane(True) needs CUDA tensors, "
-                         f"got a buffer on {buf.device}")
     if reduce:
         return (slab_ops.slab_extract, slab_ops.slab_merge_add,
                 slab_ops.slab_step_reduce)
@@ -730,7 +715,7 @@ def _apply_steps(buf: torch.Tensor, steps, mesh,
     """
     if not steps.payloads:
         return buf
-    extract, merge, step = _slab_ops(buf, reduce)
+    extract, merge, step = _slab_ops(reduce)
     n = len(steps.payloads)
     out = extract(buf, steps.send_start[0], steps.payloads[0])
     for k in range(n):
@@ -771,7 +756,7 @@ def _placed_input(x: torch.Tensor, plan, tables) -> torch.Tensor:
     received ranges."""
     buf = torch.zeros((x.shape[0], plan.buf_rows, x.shape[2]),
                       dtype=x.dtype, device=x.device)
-    _, merge, _ = _slab_ops(buf)
+    _, merge, _ = _slab_ops()
     return merge(buf, x, tables.offsets, tables.cap_rows)
 
 
@@ -807,7 +792,7 @@ def scatterv_shard(buf_root: torch.Tensor, plan: GathervPlan, mesh,
                          f"{plan.buf_rows}, F) on {mesh.device}, got "
                          f"{tuple(buf_root.shape)} on {buf_root.device}")
     buf = _apply_steps(buf_root, tables.walks[1], mesh)
-    extract, _, _ = _slab_ops(buf)
+    extract, _, _ = _slab_ops()
     return extract(buf, tables.offsets, plan.cap)
 
 
@@ -838,7 +823,7 @@ def alltoallv_shard(x: torch.Tensor, plan: ComposedPlan, mesh,
     buf = _apply_steps(_placed_input(x, plan, tables), tables.walks[0], mesh)
     out = torch.zeros((x.shape[0], plan.out_rows, x.shape[2]),
                       dtype=x.dtype, device=x.device)
-    extract, merge, _ = _slab_ops(buf)
+    extract, merge, _ = _slab_ops()
     for src_start, dst_start, valid in tables.extract:
         merge(out, extract(buf, src_start, plan.chunk), dst_start, valid)
     return out
@@ -866,7 +851,7 @@ def reduce_scatterv_shard(x: torch.Tensor, plan: ReduceScattervPlan, mesh,
     _check_input(x, plan.in_rows, mesh)
     buf = _apply_steps(_contribution_buffer(x, plan.buf_rows),
                        tables.walks[0], mesh, reduce=True)
-    extract, _, _ = _slab_ops(buf)
+    extract, _, _ = _slab_ops()
     return extract(buf, tables.offsets, plan.cap)
 
 

@@ -5,8 +5,13 @@ version:
                   merge, K3 fused step), CUDA C++ in
                   ``ragged_gather/csrc/slab.cu``, and its folds (K4
                   merge-add, K5 fused reduce step) in
-                  ``ragged_gather/csrc/slab_reduce.cu``.
+                  ``ragged_gather/csrc/slab_reduce.cu``; and the
+                  pack/unpack row moves through an index map (K6
+                  ragged_gather, K7 ragged_scatter) in
+                  ``ragged_gather/csrc/pack.cu``.
 """
-from .ragged_gather.ops import (LAUNCHES, reset_launches,  # noqa: F401
-                                slab_extract, slab_merge, slab_merge_add,
-                                slab_step, slab_step_reduce)
+from .ragged_gather.ops import (LAUNCHES, pack_blocks,  # noqa: F401
+                                ragged_gather, ragged_scatter,
+                                reset_launches, slab_extract, slab_merge,
+                                slab_merge_add, slab_step, slab_step_reduce,
+                                unpack_blocks)

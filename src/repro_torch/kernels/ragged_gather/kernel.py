@@ -1,13 +1,17 @@
-"""CUDA launchers of the slab kernels K1–K3 (``csrc/slab.cu``) and the
-reduction slab kernels K4–K5 (``csrc/slab_reduce.cu``).
+"""CUDA launchers of the slab kernels K1–K3 (``csrc/slab.cu``), the
+reduction slab kernels K4–K5 (``csrc/slab_reduce.cu``) and the pack
+kernels K6–K7 (``csrc/pack.cu``).
 
 Each function takes CUDA tensors with a leading rank axis, checks them,
 launches one kernel on PyTorch's current stream and raises if the launch
 was refused.  K1–K3 move raw 16-byte vectors, so any dtype whose row is
 a multiple of 16 bytes is accepted; K4–K5 add, and take fp32, bf16 and
-int32.  Outputs are allocated here with ``torch.empty``; the kernels
-allocate nothing and do not synchronise.  The two sources are two
-libraries, each built by its own ``nvcc`` at first use.
+int32.  K6–K7 take single ``(rows, F)`` tensors of any dtype and any row
+width: they copy 16-byte units where the rows and pointers allow it and
+narrower units otherwise.  Outputs are allocated here (``torch.empty``;
+``torch.zeros`` for K7, which writes only the rows it is given); the
+kernels allocate nothing and do not synchronise.  The three sources are
+three libraries, each built by its own ``nvcc`` at first use.
 
 | kernel               | replaces (src/repro/kernels/ragged_gather/kernel.py) |
 |----------------------|------------------------------------------------------|
@@ -16,6 +20,8 @@ libraries, each built by its own ``nvcc`` at first use.
 | ``slab_step``        | ``slab_step_kernel`` (K3)                            |
 | ``slab_merge_add``   | ``slab_merge_add_kernel`` (K4)                       |
 | ``slab_step_reduce`` | ``slab_step_reduce_kernel`` (K5)                     |
+| ``ragged_gather``    | ``ragged_gather_kernel`` (K6)                        |
+| ``ragged_scatter``   | ``ragged_scatter_kernel`` (K7)                       |
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from .. import _build
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "slab.cu"]
 REDUCE_SOURCES = [Path(__file__).resolve().parent / "csrc" / "slab_reduce.cu"]
+PACK_SOURCES = [Path(__file__).resolve().parent / "csrc" / "pack.cu"]
 # dtype codes of slab_reduce.cu
 REDUCE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _P = ctypes.c_void_p
@@ -49,6 +56,10 @@ _SIGNATURES = {
                                   _I64, _I64, _I64, _P],
         "slab_step_reduce_launch": [_P, _P, _P, _P, _P, _P, ctypes.c_int,
                                     ctypes.c_int, _I64, _I64, _I64, _I64, _P],
+    },
+    "pack": {
+        "ragged_gather_launch": [_P, _P, _P, _I64, _I64, _I64, _P],
+        "ragged_scatter_launch": [_P, _P, _P, _I64, _I64, _I64, _P],
     },
 }
 
@@ -73,6 +84,11 @@ def library() -> ctypes.CDLL:
 def reduce_library() -> ctypes.CDLL:
     """Build (first call only) and load the reduction slab library (K4–K5)."""
     return _library("slab_reduce", REDUCE_SOURCES)
+
+
+def pack_library() -> ctypes.CDLL:
+    """Build (first call only) and load the pack library (K6–K7)."""
+    return _library("pack", PACK_SOURCES)
 
 
 def _rows(t: torch.Tensor, name: str, device: torch.device) -> int:
@@ -244,3 +260,55 @@ def slab_step_reduce_cuda(buf: torch.Tensor, got: torch.Tensor,
         _table(send_start, "send_start", P, dev), dtype, P, buf_rows, rows_in,
         rows_out, row_bytes, _stream(dev)), "slab_step_reduce")
     return buf, out
+
+
+def _pack_operands(x: torch.Tensor, idx: torch.Tensor) -> int:
+    """Check K6/K7's ``(rows, F)`` data and ``(M,)`` int32 index on the
+    same CUDA device; return the row bytes."""
+    if x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous (rows, F) tensor, got "
+                         f"{tuple(x.shape)}")
+    if (idx.device != x.device or idx.dtype != torch.int32 or idx.dim() != 1
+            or not idx.is_contiguous()):
+        raise ValueError(f"idx must be a contiguous (M,) int32 tensor on "
+                         f"{x.device}, got {tuple(idx.shape)} {idx.dtype} on "
+                         f"{idx.device}")
+    return x.shape[1] * x.element_size()
+
+
+def ragged_gather_cuda(x: torch.Tensor,
+                       idx: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    """K6 on the card: ``out[i] = x[clip(idx[i], 0, N - 1)]`` →
+    ``(M, F)``.  Launches nothing when ``out`` is empty.  Returns
+    ``(out, launched)``."""
+    row_bytes = _pack_operands(x, idx)
+    m = idx.shape[0]
+    if m and x.shape[0] == 0:
+        raise ValueError("cannot gather rows from an empty x")
+    out = torch.empty((m, x.shape[1]), dtype=x.dtype, device=x.device)
+    if out.numel():
+        lib = pack_library()
+        _raise_on(lib, lib.ragged_gather_launch(
+            x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0], m,
+            row_bytes, _stream(x.device)), "ragged_gather")
+    return out, bool(out.numel())
+
+
+def ragged_scatter_cuda(x: torch.Tensor, idx: torch.Tensor,
+                        n_out: int) -> tuple[torch.Tensor, bool]:
+    """K7 on the card: ``out[idx[i]] = x[i]`` over a zero ``(n_out, F)``
+    buffer; rows whose destination is outside ``[0, n_out)`` are dropped.
+    Launches nothing when there is no row to move.  Returns
+    ``(out, launched)``."""
+    row_bytes = _pack_operands(x, idx)
+    if idx.shape[0] != x.shape[0] or n_out < 0:
+        raise ValueError(f"need idx ({x.shape[0]},) and n_out >= 0, got "
+                         f"{tuple(idx.shape)} and {n_out}")
+    out = torch.zeros((n_out, x.shape[1]), dtype=x.dtype, device=x.device)
+    launch = bool(x.numel() and n_out)
+    if launch:
+        lib = pack_library()
+        _raise_on(lib, lib.ragged_scatter_launch(
+            x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0], n_out,
+            row_bytes, _stream(x.device)), "ragged_scatter")
+    return out, launch

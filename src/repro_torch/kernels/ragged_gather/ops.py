@@ -1,11 +1,15 @@
-"""Slab wrappers of the data plane: K1–K3 move rows (gatherv, scatterv,
-allgatherv, alltoallv), K4–K5 fold them (reduce_scatterv, allreducev).
+"""Wrappers of the data plane: K1–K3 move slabs (gatherv, scatterv,
+allgatherv, alltoallv), K4–K5 fold them (reduce_scatterv, allreducev),
+K6–K7 pack and unpack rows through an index map (``pack_blocks``,
+``unpack_blocks``, the MoE dispatch and combine gathers).
 
 A tensor on the CPU goes to the plain PyTorch version in ``ref.py``; a
 CUDA tensor launches the hand-written kernel in ``kernel.py`` or raises.
-There is no fallback from one to the other.  ``LAUNCHES`` counts the
-kernel launches of each wrapper (and nothing else), so a run can show
-that its main path went through the kernels.
+There is no fallback from one to the other.  :func:`use_kernels` (behind
+``core.use_kernel_dataplane``) can send every tensor to the plain
+versions, or demand the kernels.  ``LAUNCHES`` counts the kernel
+launches of each wrapper (and nothing else), so a run can show that its
+main path went through the kernels.
 """
 from __future__ import annotations
 
@@ -14,7 +18,12 @@ import torch
 from . import kernel, ref
 
 LAUNCHES = {"slab_extract": 0, "slab_merge": 0, "slab_step": 0,
-            "slab_merge_add": 0, "slab_step_reduce": 0}
+            "slab_merge_add": 0, "slab_step_reduce": 0, "ragged_gather": 0,
+            "ragged_scatter": 0}
+
+# None = the kernel exactly when the tensor is on CUDA; True = the kernel,
+# and a CPU tensor is an error; False = the plain version on any device.
+_KERNELS: bool | None = None
 
 
 def reset_launches() -> None:
@@ -22,18 +31,32 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _on_cuda(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
+def use_kernels(enable: bool | None) -> None:
+    """Select the backend of every wrapper here: ``None`` (default) the
+    kernels on CUDA tensors and the plain versions on CPU tensors,
+    ``True`` the kernels only (a CPU tensor raises), ``False`` the plain
+    versions on any device."""
+    global _KERNELS
+    _KERNELS = enable
+
+
+def _use_kernel(t: torch.Tensor) -> bool:
+    """Whether the wrapper launches its kernel for ``t``."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the data-plane ops run on cpu or cuda tensors, "
+                         f"not {t.device}")
+    if _KERNELS is False:
         return False
-    raise ValueError(f"slab ops run on cpu or cuda tensors, not {t.device}")
+    if _KERNELS and t.device.type != "cuda":
+        raise ValueError("use_kernel_dataplane(True) needs CUDA tensors, "
+                         f"got one on {t.device}")
+    return t.device.type == "cuda"
 
 
 def slab_extract(buf: torch.Tensor, start: torch.Tensor,
                  rows: int) -> torch.Tensor:
     """K1: ``out[r, i] = buf[r, place(start[r]) + i]`` → ``(P, rows, F)``."""
-    if not _on_cuda(buf):
+    if not _use_kernel(buf):
         return ref.slab_extract_ref(buf, start, rows)
     out = kernel.slab_extract_cuda(buf, start, rows)
     LAUNCHES["slab_extract"] += 1
@@ -44,7 +67,7 @@ def slab_merge(buf: torch.Tensor, slab: torch.Tensor, start: torch.Tensor,
                valid: torch.Tensor) -> torch.Tensor:
     """K2, in place: the ``valid``-row prefix of ``slab`` into ``buf`` at
     ``start``.  Returns ``buf``."""
-    if not _on_cuda(buf):
+    if not _use_kernel(buf):
         return ref.slab_merge_ref(buf, slab, start, valid)
     kernel.slab_merge_cuda(buf, slab, start, valid)
     LAUNCHES["slab_merge"] += 1
@@ -56,7 +79,7 @@ def slab_step(buf: torch.Tensor, got: torch.Tensor, recv_start: torch.Tensor,
               rows_out: int) -> tuple[torch.Tensor, torch.Tensor]:
     """K3: merge ``got`` in place, then extract the next ``rows_out`` rows
     at ``send_start`` from the merged buffer.  Returns ``(buf, slab)``."""
-    if not _on_cuda(buf):
+    if not _use_kernel(buf):
         return ref.slab_step_ref(buf, got, recv_start, recv_valid,
                                  send_start, rows_out)
     out = kernel.slab_step_cuda(buf, got, recv_start, recv_valid,
@@ -69,7 +92,7 @@ def slab_merge_add(buf: torch.Tensor, slab: torch.Tensor,
                    start: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """K4, in place: add the ``valid``-row prefix of ``slab`` into ``buf``
     at ``start``; every other row keeps its bits.  Returns ``buf``."""
-    if not _on_cuda(buf):
+    if not _use_kernel(buf):
         return ref.slab_merge_add_ref(buf, slab, start, valid)
     kernel.slab_merge_add_cuda(buf, slab, start, valid)
     LAUNCHES["slab_merge_add"] += 1
@@ -83,10 +106,56 @@ def slab_step_reduce(buf: torch.Tensor, got: torch.Tensor,
     """K5: fold ``got`` into ``buf`` in place, then extract the next
     ``rows_out`` rows at ``send_start`` from the updated buffer.  Returns
     ``(buf, slab)``."""
-    if not _on_cuda(buf):
+    if not _use_kernel(buf):
         return ref.slab_step_reduce_ref(buf, got, recv_start, recv_valid,
                                         send_start, rows_out)
     out = kernel.slab_step_reduce_cuda(buf, got, recv_start, recv_valid,
                                        send_start, rows_out)
     LAUNCHES["slab_step_reduce"] += 1
     return out
+
+
+def ragged_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """K6: ``out[i] = x[clip(idx[i], 0, N - 1)]`` → ``(M, F)``, for any
+    dtype and row width; ``idx`` is int32."""
+    if not _use_kernel(x):
+        return ref.ragged_gather_ref(x, idx)
+    out, launched = kernel.ragged_gather_cuda(x, idx)
+    LAUNCHES["ragged_gather"] += launched
+    return out
+
+
+def pack_blocks(blocks: torch.Tensor, sizes: torch.Tensor,
+                total_pad: int) -> torch.Tensor:
+    """Pack the first ``sizes[b]`` rows of each padded block of ``blocks``
+    ``(N, cap, F)`` into ``(total_pad, F)`` in block order, zero rows
+    after them: one K6 gather over the blocks and a zero sentinel row.
+    Runs with no host sync for ``sizes``."""
+    n, cap, f = blocks.shape
+    idx = ref.build_pack_index(sizes, cap, total_pad)
+    src = torch.cat([blocks.reshape(n * cap, f), blocks.new_zeros((1, f))])
+    return ragged_gather(src, idx)
+
+
+def ragged_scatter(x: torch.Tensor, idx: torch.Tensor,
+                   n_out: int) -> torch.Tensor:
+    """K7: ``out[idx[i]] = x[i]`` over a zero ``(n_out, F)`` buffer, for
+    any dtype and row width; rows whose destination is outside
+    ``[0, n_out)`` are dropped.  ``idx`` is int32."""
+    if not _use_kernel(x):
+        return ref.ragged_scatter_ref(x, idx, n_out)
+    out, launched = kernel.ragged_scatter_cuda(x, idx, n_out)
+    LAUNCHES["ragged_scatter"] += launched
+    return out
+
+
+def unpack_blocks(packed: torch.Tensor, sizes: torch.Tensor,
+                  cap: int) -> torch.Tensor:
+    """The inverse of :func:`pack_blocks` with the same index map: packed
+    row ``r`` goes back to flat row ``pack_index[r]`` of ``(N, cap, F)``
+    zero blocks (one K7 scatter).  Padding rows point at the sentinel
+    ``N * cap``, one past the blocks, and are dropped there."""
+    total_pad, f = packed.shape
+    n = sizes.shape[0]
+    idx = ref.build_pack_index(sizes, cap, total_pad)
+    return ragged_scatter(packed, idx, n * cap).view(n, cap, f)

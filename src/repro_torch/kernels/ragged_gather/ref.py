@@ -103,3 +103,62 @@ def slab_step_reduce_ref(buf: torch.Tensor, got: torch.Tensor,
     Returns ``(buf, next_slab)``."""
     slab_merge_add_ref(buf, got, recv_start, recv_valid)
     return buf, slab_extract_ref(buf, send_start, rows_out)
+
+
+# --------------------------------------------------------------------------
+# pack/unpack (K6 ragged_gather, K7 ragged_scatter): single tensors, no
+# rank axis, like the JAX oracles
+# --------------------------------------------------------------------------
+
+def ragged_gather_ref(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """K6: ``out[i] = x[clip(idx[i], 0, N - 1)]`` → ``(M, F)``.  A
+    negative index reads row 0, one past the end the last row (callers
+    point padding at a zero sentinel row)."""
+    if x.dim() != 2 or idx.dim() != 1:
+        raise ValueError(f"need x (N, F) and idx (M,), got {tuple(x.shape)} "
+                         f"and {tuple(idx.shape)}")
+    safe = idx.to(torch.int64).clamp(0, x.shape[0] - 1)
+    return x.index_select(0, safe)
+
+
+def ragged_scatter_ref(x: torch.Tensor, idx: torch.Tensor,
+                       n_out: int) -> torch.Tensor:
+    """K7: ``out[idx[i]] = x[i]`` over a zero ``(n_out, F)`` buffer.  A row
+    whose destination is outside ``[0, n_out)`` is dropped (the JAX op
+    routes it to a trash row and slices that off).  Duplicate in-range
+    destinations land in an unspecified order, as in the reference; the
+    data plane's index maps never make them."""
+    if x.dim() != 2 or idx.shape != x.shape[:1]:
+        raise ValueError(f"need x (M, F) and idx (M,), got {tuple(x.shape)} "
+                         f"and {tuple(idx.shape)}")
+    keep = (idx >= 0) & (idx < n_out)
+    out = torch.zeros((n_out, x.shape[1]), dtype=x.dtype, device=x.device)
+    return out.index_copy_(0, idx[keep].to(torch.int64), x[keep])
+
+
+def build_pack_index(sizes: torch.Tensor, cap: int,
+                     total_pad: int) -> torch.Tensor:
+    """Row-index map of the pack: output row ``r`` (inside block ``b`` at
+    offset ``o``) reads flat row ``b * cap + o``; padding rows read the
+    zero sentinel ``n * cap``.  ``(total_pad,)`` int32 on ``sizes``'
+    device, made with no host sync.  Where ``sizes[b] > cap`` the index
+    walks on into block ``b + 1``'s rows, as the reference's does."""
+    n = sizes.shape[0]
+    s = sizes.to(torch.int64)
+    ends = torch.cumsum(s, 0)
+    offsets = ends - s
+    r = torch.arange(total_pad, device=sizes.device)
+    b = torch.searchsorted(ends, r, right=True).clamp(0, n - 1)
+    o = r - offsets[b]
+    valid = (o >= 0) & (o < s[b]) & (r < ends[-1])
+    return torch.where(valid, b * cap + o, n * cap).to(torch.int32)
+
+
+def pack_blocks_ref(blocks: torch.Tensor, sizes: torch.Tensor,
+                    total_pad: int) -> torch.Tensor:
+    """Pack padded ``(N, cap, F)`` blocks into a contiguous ``(total_pad,
+    F)`` buffer in block order (the paper's send-buffer consolidation)."""
+    n, cap, f = blocks.shape
+    idx = build_pack_index(sizes, cap, total_pad)
+    src = torch.cat([blocks.reshape(n * cap, f), blocks.new_zeros((1, f))])
+    return ragged_gather_ref(src, idx)

@@ -1,4 +1,4 @@
-"""K1–K5 on the card against their plain PyTorch versions.
+"""K1–K7 on the card against their plain PyTorch versions.
 
 Needs a CUDA device (marker ``gpu``); without one every test here skips.
 This file imports no JAX, so it runs on the GPU machine as it is:
@@ -62,7 +62,8 @@ def test_cuda_kernels_match_plain(cuda_device, dname):
     assert torch.equal(kb, pb) and torch.equal(ko, po)
     assert ops.LAUNCHES == {"slab_extract": 1, "slab_merge": 1,
                             "slab_step": 1, "slab_merge_add": 0,
-                            "slab_step_reduce": 0}
+                            "slab_step_reduce": 0, "ragged_gather": 0,
+                            "ragged_scatter": 0}
 
 
 def _send_windows(start, rows_in, rows_out):
@@ -183,4 +184,78 @@ def test_cuda_reduce_and_composed_small(cuda_device, segments):
         for j in range(8):
             np.testing.assert_array_equal(
                 res[j], np.concatenate([matrix[i][j] for i in range(8)]))
-    assert all(n > 0 for n in ops.LAUNCHES.values()), ops.LAUNCHES
+    assert all(ops.LAUNCHES[k] > 0 for k in
+               ("slab_extract", "slab_merge", "slab_step", "slab_merge_add",
+                "slab_step_reduce")), ops.LAUNCHES
+
+
+# (name, rows, F, dtype): 16-byte rows, the odd 28-byte fp32 row, int32,
+# 6-byte fp16 rows and single bytes
+PACK_CASES = [("fp32-aligned", 300, 64, torch.float32),
+              ("fp32-F7", 300, 7, torch.float32),
+              ("int32", 257, 12, torch.int32),
+              ("fp16-F3", 100, 3, torch.float16),
+              ("uint8-F5", 100, 5, torch.uint8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PACK_CASES, ids=[c[0] for c in PACK_CASES])
+def test_cuda_pack_kernels_match_plain(cuda_device, case):
+    """K6 and K7 on the card, bitwise against their plain versions, with
+    indices in range, negative and past the end, and pack -> unpack."""
+    _, n, f, tdt = case
+    rng = np.random.default_rng(n + f)
+    if tdt.is_floating_point:
+        x = _data(rng, (n, f), torch.float32).to(tdt)
+    else:
+        x = torch.from_numpy(rng.integers(0, 100, size=(n, f))).to(tdt)
+    x = x.to(cuda_device)
+    idx = rng.integers(-5, n + 5, size=3 * n).astype(np.int32)
+    idx = torch.from_numpy(idx).to(cuda_device)
+    ops.reset_launches()
+    assert torch.equal(ops.ragged_gather(x, idx), ref.ragged_gather_ref(x, idx))
+    dst = rng.permutation(n + 40)[:n] - 20          # injective, some dropped
+    dst = torch.from_numpy(dst.astype(np.int32)).to(cuda_device)
+    assert torch.equal(ops.ragged_scatter(x, dst, n),
+                       ref.ragged_scatter_ref(x, dst, n))
+    sizes = torch.tensor([5, 0, 17, 3], dtype=torch.int32, device=cuda_device)
+    blocks = x[: 4 * 20].reshape(4, 20, f)
+    packed = ops.pack_blocks(blocks, sizes, 30)
+    assert torch.equal(packed, ref.pack_blocks_ref(blocks, sizes, 30))
+    back = ops.unpack_blocks(packed, sizes, 20)
+    keep = torch.arange(20, device=cuda_device)[None, :] < sizes[:, None]
+    assert torch.equal(back, torch.where(keep[..., None], blocks, 0))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ragged_gather"] == 2
+    assert ops.LAUNCHES["ragged_scatter"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups", [1, 2])
+def test_cuda_moe_small(cuda_device, groups):
+    """A small MoE layer on the card: the K6 gathers against the plain
+    versions (``use_kernel_dataplane(False)``), bitwise, in bf16 and with
+    tokens dropped by the capacity."""
+    import dataclasses
+
+    import repro_torch as rt
+
+    cfg = rt.get_config("mixtral-8x7b").reduced()
+    moe = dataclasses.replace(cfg.moe, dispatch_groups=groups)
+    layer = rt.MoE(cfg.d_model, moe, dtype=torch.bfloat16, seed=1)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn((4, 32, cfg.d_model), generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    for capacity in (None, 5):
+        ops.reset_launches()
+        out, aux = layer(x, capacity)
+        assert ops.LAUNCHES["ragged_gather"] == 2
+        try:
+            rt.use_kernel_dataplane(False)
+            want, waux = layer(x, capacity)
+        finally:
+            rt.use_kernel_dataplane(None)
+        assert torch.equal(out, want)
+        assert torch.equal(aux["load"], waux["load"])
+        assert int(aux["dropped"]) == int(waux["dropped"])
+    assert int(aux["dropped"]) > 0

@@ -32,6 +32,19 @@ got, _ = rt.run_reduce_scatterv(mesh, contribs, sizes, segments=2)
 assert (got[0] == 8 * blocks[0]).all()
 got, _ = rt.run_allreducev(mesh, contribs, sizes)
 assert (got == 8 * np.concatenate(blocks)).all()
+import torch
+from repro_torch.kernels.ragged_gather import ops
+x = torch.arange(24.0).reshape(6, 4)
+idx = torch.tensor([5, 0, 2], dtype=torch.int32)
+assert torch.equal(ops.ragged_gather(x, idx), x[[5, 0, 2]])
+assert torch.equal(ops.ragged_scatter(x[:3], idx, 6)[5], x[0])
+sz = torch.tensor([2, 0, 3], dtype=torch.int32)
+packed = rt.pack_blocks(x[:6].reshape(3, 2, 4), sz, 6)
+assert rt.unpack_blocks(packed, sz, 2).shape == (3, 2, 4)
+cfg = rt.get_config("deepseek-moe-16b").reduced()
+out, aux = rt.MoE(cfg.d_model, cfg.moe, dtype=torch.float32,
+                  device="cpu")(torch.randn(2, 4, cfg.d_model))
+assert out.shape == (2, 4, cfg.d_model) and int(aux["load"].sum()) == 16
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
@@ -59,6 +72,8 @@ def _port_files():
 def test_no_source_imports_jax_or_repro():
     files = list(_port_files())
     assert len(files) > 10
+    for sub in ("core", "kernels", "models", "configs"):
+        assert any(os.sep + sub + os.sep in f for f in files), sub
     for path in files:
         with open(path) as fh:
             hits = _IMPORT.findall(fh.read())

@@ -148,7 +148,8 @@ def test_cpu_tensors_never_launch_kernels():
     ops.slab_step_reduce(buf, torch.ones((2, 3, 4)), z, z + 3, z, 2)
     assert ops.LAUNCHES == {"slab_extract": 0, "slab_merge": 0,
                             "slab_step": 0, "slab_merge_add": 0,
-                            "slab_step_reduce": 0}
+                            "slab_step_reduce": 0, "ragged_gather": 0,
+                            "ragged_scatter": 0}
 
 
 def test_slab_ops_reject_oversized_slab():
