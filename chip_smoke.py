@@ -4,8 +4,9 @@
     python3 chip_smoke.py        # from the root of the repository
 
 Needs one CUDA device and ``nvcc`` (the kernels are built from
-``src/repro_torch/kernels/ragged_gather/csrc/slab.cu``, ``slab_reduce.cu``
-and ``pack.cu`` on first use, one ``nvcc`` each, all at once).
+``src/repro_torch/kernels/ragged_gather/csrc/slab.cu``, ``slab_reduce.cu``,
+``pack.cu`` and ``src/repro_torch/kernels/flash_attention/csrc/flash.cu``
+on first use, one ``nvcc`` each, all at once).
 Phases, in order; any failure raises and the exit code is nonzero:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the
@@ -47,10 +48,27 @@ Phases, in order; any failure raises and the exit code is nonzero:
    (device j owns expert j): ``pack_blocks`` → ``alltoallv_shard`` →
    ``unpack_blocks`` equal to the dispatch buffers, and ``pack_blocks`` →
    ``gatherv_shard`` → ``unpack_blocks`` equal to the expert outputs in
-   their kept rows, bitwise; K1–K3, K6 and K7 must have been launched.
+   their kept rows, bitwise; K1–K3, K6 and K7 must have been launched;
+7. the serving path, yi-6b at its published widths and full depth (32
+   layers, d_model 4096, 32 heads with GQA kv=4, hd 128, d_ff 11008,
+   vocab 64000; bf16, random weights from the seed): (a) K8 against its
+   plain version (2e-2 absolute and relative in bf16, 2e-5 in fp32) at
+   yi-6b's prefill (B=4, T=2048), Mixtral-8x7B's window (T=8192, window
+   4096), an odd length (T=1000), non-causal (T=384), fp32 (hd 64, window
+   128) and hd 256 (window 2048), each timed beside its bound and
+   ``scaled_dot_product_attention``; (b) ``serve_requests`` on 8 requests
+   of 1024–2048 prompt tokens in batches of 4, 32 greedy tokens each, K8
+   required; one prefill launches K8 once a layer and a decode step never;
+   finite logits; the prefill's last logits within 2e-2 (relative
+   Frobenius) of the plain versions' (``use_kernel_dataplane(False)``);
+   prefill of 256 tokens then 4 decode steps within 2e-2 of ``forward``
+   over the 260 tokens; both checks again with fp32 activations on the
+   same weights, within 1e-3 (32 bf16 layers of rounding alone come near
+   2e-2); prefill and decode times, tokens/s, peak memory and a
+   ``torch.profiler`` breakdown of a prefill and a decode step.
 
-The line before the last is a JSON object with one entry per kernel; the
-last is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel
+(K1–K8); the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -83,13 +101,24 @@ MOE_P = 8              # LocalMesh of the expert exchange: device j owns expert 
 MOE_REF_TOKENS = 64    # tokens of the fp32 recomputation
 MOE_REF_TOL = 2e-2     # relative Frobenius error of the bf16 layer vs fp32
 ODD_F = 7              # the odd width of phase 6a: 28-byte fp32 rows
+# bf16 tensor cores and fp32 outside them, dense (NVIDIA data sheet)
+FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+SERVE_ARCH, SERVE_DTYPE = "yi-6b", "bfloat16"
+SERVE_REQUESTS, SERVE_BATCH, SERVE_GEN = 8, 4, 32
+SERVE_PROMPT = (1024, 2048)   # prompt lengths, drawn from the seed
+SERVE_TOL = 2e-2       # relative Frobenius, bf16 logits of two orders
+MECH_TOL = 1e-3        # the same with fp32 activations (products reordered)
+CONSIST_T, CONSIST_STEPS = 256, 4
 CSRC = "src/repro_torch/kernels/ragged_gather/csrc/"
 SOURCES = {"slab_extract": CSRC + "slab.cu", "slab_merge": CSRC + "slab.cu",
            "slab_step": CSRC + "slab.cu",
            "slab_merge_add": CSRC + "slab_reduce.cu",
            "slab_step_reduce": CSRC + "slab_reduce.cu",
            "ragged_gather": CSRC + "pack.cu",
-           "ragged_scatter": CSRC + "pack.cu"}
+           "ragged_scatter": CSRC + "pack.cu",
+           "flash_attention":
+               "src/repro_torch/kernels/flash_attention/csrc/flash.cu"}
 REPLACES = {"slab_extract": "src/repro/kernels/ragged_gather/kernel.py:123",
             "slab_merge": "src/repro/kernels/ragged_gather/kernel.py:277",
             "slab_step": "src/repro/kernels/ragged_gather/kernel.py:168",
@@ -97,7 +126,9 @@ REPLACES = {"slab_extract": "src/repro/kernels/ragged_gather/kernel.py:123",
             "slab_step_reduce":
                 "src/repro/kernels/ragged_gather/kernel.py:247",
             "ragged_gather": "src/repro/kernels/ragged_gather/kernel.py:53",
-            "ragged_scatter": "src/repro/kernels/ragged_gather/kernel.py:92"}
+            "ragged_scatter": "src/repro/kernels/ragged_gather/kernel.py:92",
+            "flash_attention":
+                "src/repro/kernels/flash_attention/kernel.py:78"}
 
 
 def log(*a) -> None:
@@ -913,6 +944,286 @@ def moe_path(dev, layer, x: torch.Tensor, r) -> tuple[dict, dict]:
         "exchange_ms": times}
 
 
+# ---------------------------------------------------------------- phase 7
+
+def visible_pairs(t: int, s: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs that the masks leave visible, per head."""
+    i = np.arange(t, dtype=np.int64)
+    hi = np.minimum(s, i + 1) if causal else np.full(t, s, np.int64)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(t, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _grouped_plain(q, k, v, causal, window):
+    """K8's plain version one kv head (and its group of q heads) at a
+    time, so that its fp32 T x T scores fit."""
+    from repro_torch.kernels.flash_attention import ref
+
+    g = q.shape[1] // k.shape[1]
+    return torch.cat([ref.attention_ref(q[:, j * g:(j + 1) * g],
+                                        k[:, j:j + 1], v[:, j:j + 1],
+                                        causal=causal, window=window)
+                      for j in range(k.shape[1])], dim=1)
+
+
+def flash_case(dev, label, dtype, B, H, Hkv, T, S, hd, causal, window,
+               plain_reps: int = 3) -> dict:
+    """One K8 case: against its plain version at its dtype's tolerance,
+    then timed (``cold_ms``) beside its bound and SDPA."""
+    import torch.nn.functional as Fn
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + T + hd)
+    q = torch.randn((B, H, T, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Hkv, S, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Hkv, S, hd), generator=g, device=dev).to(dtype)
+    got = fops.flash_attention(q, k, v, causal=causal, window=window)
+    want = _grouped_plain(q, k, v, causal, window)
+    tol = FLASH_TOL[dtype]
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if not (bool(torch.isfinite(got).all())
+            and bool((diff <= tol + tol * want.float().abs()).all())):
+        raise AssertionError(f"K8 {label} differs from its plain version: "
+                             f"max abs err {err} (tolerance {tol})")
+    del got, want, diff
+    if window is None:
+        mask = None
+    else:
+        from repro_torch.kernels.flash_attention.ref import visible_mask
+        mask = visible_mask(T, S, causal=causal, window=window, device=dev)
+
+    def library():
+        return Fn.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+
+    ms = cold_ms(lambda: fops.flash_attention(q, k, v, causal=causal,
+                                              window=window), KERNEL_REPS)
+    plain_ms = cold_ms(lambda: _grouped_plain(q, k, v, causal, window),
+                       plain_reps)
+    lib_ms = cold_ms(library, KERNEL_REPS)
+    pairs = visible_pairs(T, S, causal, window)
+    flops = 4 * hd * pairs * B * H
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    compute_ms = flops / FLOPS_PER_S[dtype] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(compute_ms, bytes_ms)
+    log(f"  {label:44s} flop={flops} bytes={nbytes} kernel_ms={ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({100 * bound_ms / ms:.1f} %) "
+        f"plain_ms={plain_ms:.3f} sdpa_ms={lib_ms:.4f} max_abs_err={err}")
+    return {"case": label, "max_abs_err": err, "tolerance": tol, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if compute_ms >= bytes_ms else "bytes",
+            "library_ms": lib_ms, "flop": flops, "bytes": nbytes,
+            "visible_pairs_per_head": pairs}
+
+
+def flash_kernel_phase(dev, record: dict) -> list[dict]:
+    """Phase 7a: K8 against its plain version at the serving path's and
+    the next slices' shapes; the yi-6b prefill case fills the kernels
+    line."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [
+        flash_case(dev, "yi-6b prefill bf16 B4 H32/4 T2048 hd128", bf,
+                   4, 32, 4, 2048, 2048, 128, True, None),
+        flash_case(dev, "mixtral window bf16 B1 H32/8 T8192 w4096", bf,
+                   1, 32, 8, 8192, 8192, 128, True, 4096, plain_reps=2),
+        flash_case(dev, "odd bf16 B1 H32/4 T1000 hd128", bf,
+                   1, 32, 4, 1000, 1000, 128, True, None),
+        flash_case(dev, "non-causal bf16 B1 H32/4 T384 hd128", bf,
+                   1, 32, 4, 384, 384, 128, False, None),
+        flash_case(dev, "fp32 B2 H4/2 T256 hd64 w128", f32,
+                   2, 4, 2, 256, 256, 64, True, 128),
+        flash_case(dev, "hd256 bf16 B4 H10/1 T2048 w2048", bf,
+                   4, 10, 1, 2048, 2048, 256, True, 2048),
+    ]
+    main = cases[0]
+    record["flash_attention"] = {
+        "name": "flash_attention", "route": "cuda",
+        "source": SOURCES["flash_attention"],
+        "replaces": REPLACES["flash_attention"], "launches": 0,
+        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")}}
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float()
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def serve_setup(dev) -> dict:
+    """yi-6b's config, its random weights on the card (from the seed) and
+    the request queue (prompt lengths and tokens from the seed)."""
+    import repro_torch as rt
+    from repro_torch.models.transformer import init_params
+
+    cfg = rt.get_config(SERVE_ARCH).with_(dtype=SERVE_DTYPE)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    leaves = [t for _, t in _tensors(params)]
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    queue = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    ctx = {"cfg": cfg, "params": params, "queue": queue, "lens": lens,
+           "rng": rng, "init_s": init_s,
+           "parameters": sum(t.numel() for t in leaves),
+           "weight_bytes": sum(t.numel() * t.element_size() for t in leaves)}
+    log(f"  {SERVE_ARCH}: {ctx['parameters']} parameters, "
+        f"{ctx['weight_bytes']} bytes, made in {init_s:.2f} s; prompt "
+        f"lengths {lens.tolist()}")
+    return ctx
+
+
+def serve_main(dev, ctx: dict) -> dict:
+    """Phase 7b's main path: the requests served through
+    ``serve_requests`` as a user calls it."""
+    from repro_torch.kernels import backend
+    from repro_torch.launch.serve import serve_requests
+
+    cfg = ctx["cfg"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = serve_requests(ctx["params"], cfg, ctx["queue"], SERVE_BATCH,
+                         SERVE_GEN, dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    for toks in res["tokens"]:
+        if toks.shape != (SERVE_GEN + 1,) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab:
+            raise AssertionError(f"served tokens out of range: {toks}")
+    n_batches = len(res["prefill_s"])
+    prefill_ms = [1e3 * x for x in res["prefill_s"]]
+    decode_ms = 1e3 * sum(res["decode_s"]) / (n_batches * SERVE_GEN)
+    out = {"arch": SERVE_ARCH, "dtype": SERVE_DTYPE, "layers": cfg.n_layers,
+           "parameters": ctx["parameters"],
+           "weight_bytes": ctx["weight_bytes"], "init_s": ctx["init_s"],
+           "prompt_lens": ctx["lens"].tolist(), "batch": SERVE_BATCH,
+           "gen": SERVE_GEN, "prefill_ms": prefill_ms,
+           "decode_ms_per_step": decode_ms,
+           "tokens_per_s": res["tokens_out"] / res["wall_s"],
+           "decode_tokens_per_s": res["tokens_out"] / sum(res["decode_s"]),
+           "wall_s": res["wall_s"], "peak_bytes": peak,
+           "k8_launches": backend.LAUNCHES["flash_attention"]}
+    log(f"  served {len(res['tokens'])} requests in {n_batches} batches: "
+        f"prefill ms {prefill_ms}, decode ms/step {decode_ms:.3f}, "
+        f"{out['tokens_per_s']:.1f} tokens/s over {res['wall_s']:.2f} s "
+        f"({out['decode_tokens_per_s']:.1f} in decode), peak {peak} bytes")
+    return out
+
+
+def serve_checks(dev, ctx: dict) -> tuple[dict, dict]:
+    """Phase 7b's checks: one prefill of the first batch launches K8 once
+    a layer and a decode step never, with finite logits; the prefill's
+    last logits against the plain versions; prefill + decode against
+    ``forward``.  Returns the thunks of a prefill and a decode step (for
+    the profile) and the numbers."""
+    import repro_torch as rt
+    from repro_torch.kernels import backend
+    from repro_torch.models.transformer import (decode_step, forward,
+                                                init_cache)
+
+    cfg, params, queue, rng = (ctx["cfg"], ctx["params"], ctx["queue"],
+                               ctx["rng"])
+    # the same weights with fp32 activations and cache: the residual stream
+    # starts from the embedding rows in fp32, so every product and K8 run
+    # in fp32, and the checks of the mechanism sit far above rounding noise
+    cfg32 = cfg.with_(dtype="float32", embed_inputs=False)
+
+    def inputs(c, toks, name):
+        if c.embed_inputs:
+            return {name: toks}
+        return {"embeds": params["embed"]["e"][toks].float()}
+
+    def fwd(c, toks, cache=None):
+        return forward(params, c, cache=cache,
+                       logits_last_only=cache is not None,
+                       **inputs(c, toks, "tokens"))
+
+    def dec(c, cache, tok):
+        return decode_step(params, c, cache, **inputs(c, tok, "token"))
+
+    plen = max(len(p) for p in queue[:SERVE_BATCH])
+    toks = np.zeros((SERVE_BATCH, plen), np.int32)
+    for i, p in enumerate(queue[:SERVE_BATCH]):
+        toks[i, plen - len(p):] = p
+    toks = torch.from_numpy(toks).to(dev)
+
+    def prefill(c=cfg):
+        logits, _, cache = fwd(c, toks, init_cache(c, SERVE_BATCH,
+                                                   plen + SERVE_GEN, dev))
+        return logits, cache
+
+    # one prefill launches K8 once a layer, a decode step never; finite
+    backend.reset_launches()
+    logits, cache = prefill()
+    once = backend.LAUNCHES["flash_attention"]
+    cur = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    backend.reset_launches()
+    dlogits, cache = dec(cfg, cache, cur)
+    torch.cuda.synchronize(dev)
+    in_decode = backend.LAUNCHES["flash_attention"]
+    if once != cfg.n_layers or in_decode != 0:
+        raise AssertionError(f"a prefill launched K8 {once} times (want "
+                             f"{cfg.n_layers}), a decode step {in_decode} "
+                             f"(want 0)")
+    if not (bool(torch.isfinite(logits).all())
+            and bool(torch.isfinite(dlogits).all())):
+        raise AssertionError("non-finite logits in prefill or decode")
+
+    # the prefill through K8 against the plain versions, and prefill +
+    # decode against forward over the same tokens, in both views
+    seq = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (1, CONSIST_T + CONSIST_STEPS)).astype(
+            np.int32)).to(dev)
+    errs = {}
+    for label, c in (("bf16", cfg), ("fp32", cfg32)):
+        k8 = logits if c is cfg else prefill(c)[0]
+        rt.use_kernel_dataplane(False)
+        try:
+            plain = prefill(c)[0]
+        finally:
+            rt.use_kernel_dataplane(None)
+        errs[f"prefill_vs_plain_{label}"] = _rel(k8[:, -1], plain[:, -1])
+        del k8, plain
+        full, _ = fwd(c, seq)
+        first, _, c1 = fwd(c, seq[:, :CONSIST_T], init_cache(
+            c, 1, CONSIST_T + CONSIST_STEPS, dev))
+        outs = [first]
+        for i in range(CONSIST_STEPS):
+            out, c1 = dec(c, c1, seq[:, CONSIST_T + i:CONSIST_T + i + 1])
+            outs.append(out)
+        errs[f"prefill_decode_vs_forward_{label}"] = _rel(
+            torch.cat(outs, 1),
+            full[:, CONSIST_T - 1:CONSIST_T + CONSIST_STEPS])
+        del full, c1, outs
+    log(f"  checks: one prefill launches K8 {once} times, a decode step "
+        f"{in_decode}; relative errors {errs} (limits: fp32 view "
+        f"{MECH_TOL}, bf16 {SERVE_TOL})")
+    for name, err in errs.items():
+        limit = MECH_TOL if name.endswith("fp32") else SERVE_TOL
+        if not err <= limit:
+            raise AssertionError(f"{name}: relative error {err} > {limit}")
+
+    fns = {"prefill": prefill, "decode_step": lambda: dec(cfg, cache, cur)}
+    return fns, {"k8_per_prefill": once, "k8_per_decode_step": in_decode,
+                 **errs}
+
+
+def _tensors(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tensors(v, path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _tensors(v, path + (i,))
+    else:
+        yield path, tree
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the GPU",
@@ -921,6 +1232,7 @@ def main() -> int:
     import repro_torch as rt
     from repro_torch.core.distributions import block_sizes
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.ragged_gather import kernel, ops
 
     dev = torch.device("cuda", 0)
@@ -931,15 +1243,17 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:   # one nvcc per source, together
+    with ThreadPoolExecutor(4) as pool:   # one nvcc per source, together
         for lib in [pool.submit(kernel.library),
                     pool.submit(kernel.reduce_library),
-                    pool.submit(kernel.pack_library)]:
+                    pool.submit(kernel.pack_library),
+                    pool.submit(flash_kernel.library)]:
             lib.result()
     log(f"kernel build + load s: {time.perf_counter() - t0:.2f}")
-    for lib in ("slab", "slab_reduce", "pack"):
+    for lib in ("slab", "slab_reduce", "pack", "flash"):
         for line in _build.BUILD_LOG.get(lib, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 log(f"  ptxas ({lib}):", line.strip())
 
     log("== phase 2: kernels vs plain (bitwise)")
@@ -1006,6 +1320,35 @@ def main() -> int:
     log(json.dumps({"profile": [_profiled("MoE layer and exchange", fns)]}))
     del layer, x, r, fns
     torch.cuda.empty_cache()
+
+    log("== phase 7: serving path (yi-6b, full width and depth, bf16, "
+        "prefill attention on K8)")
+    t0 = time.perf_counter()
+    cases = flash_kernel_phase(dev, record)
+    log(json.dumps({"flash_kernels": cases}))
+    log(f"  phase 7a s: {time.perf_counter() - t0:.1f}")
+    ctx = serve_setup(dev)
+    serving = main_path_launches("serving path", ("flash_attention",),
+                                 lambda: serve_main(dev, ctx))
+    fns, checks = serve_checks(dev, ctx)
+    log(json.dumps({"serve_path": {**serving, **checks}}))
+    prof = [_profiled(f"yi-6b {name}", {name: fn}, reps=2)
+            for name, fn in fns.items()]
+    for p in prof:
+        by = p["device_ms_per_round"]
+        k8 = sum(ms for k, ms in by.items() if "flash_fwd" in k)
+        gemm = sum(ms for k, ms in by.items()
+                   if any(w in k.lower() for w in ("gemm", "nvjet", "cutlass",
+                                                   "xmma")))
+        busy = p["busy_ms_per_round"] or float("nan")
+        log(f"  {p['case']}: K8 {k8:.3f} ms ({100 * k8 / busy:.1f} %), "
+            f"GEMMs {gemm:.3f} ms ({100 * gemm / busy:.1f} %) of "
+            f"{busy:.3f} ms busy")
+        p["k8_ms"], p["gemm_ms"] = k8, gemm
+    log(json.dumps({"profile": prof}))
+    del fns, ctx
+    torch.cuda.empty_cache()
+    log(f"  phase 7 s: {time.perf_counter() - t0:.1f}")
     for name, n in launches.items():
         record[name]["launches"] = n
 

@@ -5,8 +5,10 @@ NVIDIA H100.
 It imports ``torch`` and numpy, never ``jax`` and nothing of ``repro``;
 modules mirror ``repro``'s layout and names.  Subpackages: core (trees,
 plans, executors, meshes), kernels (hand-written CUDA kernels beside their
-plain PyTorch versions), models (the MoE layer), configs (the
-architectures it runs at), obs (spans and metrics of the entry points).
+plain PyTorch versions), models (the MoE layer, attention, the
+transformer), train (the serving steps), launch (the serving entry point),
+configs (the architectures it runs at), obs (spans and metrics of the
+entry points).
 """
 from .core import (AllreducevPlan, ComposedPlan, GathervPlan,  # noqa: F401
                    LocalMesh, ProcessGroupMesh, ReduceScattervPlan,
@@ -18,7 +20,7 @@ from .core import (AllreducevPlan, ComposedPlan, GathervPlan,  # noqa: F401
                    run_reduce_scatterv, run_scatterv, scatterv_shard,
                    use_kernel_dataplane)
 from .configs import get_config  # noqa: F401
-from .kernels import pack_blocks, unpack_blocks  # noqa: F401
-from .models import MoE, moe_apply  # noqa: F401
+from .kernels import flash_attention, pack_blocks, unpack_blocks  # noqa: F401
+from .models import MoE, Transformer, moe_apply  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
 """Config registry of the port: the architectures whose layers it runs
-(``get_config("mixtral-8x7b")``), copied from ``repro.configs``."""
+(``get_config("yi-6b")``), copied from ``repro.configs``."""
 from __future__ import annotations
 
 import importlib
@@ -9,6 +9,8 @@ from .base import ArchConfig, MoEConfig  # noqa: F401
 _MODULES = {
     "mixtral-8x7b": "mixtral_8x7b",
     "deepseek-moe-16b": "deepseek_moe_16b",
+    "yi-6b": "yi_6b",
+    "granite-3-2b": "granite_3_2b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -1,6 +1,7 @@
 """Architecture configuration: the port's copy of the fields of
-``repro.configs.base`` that the MoE layer and :meth:`ArchConfig.reduced`
-read (the distribution knobs of the JAX package stay there).
+``repro.configs.base`` that the MoE layer, the transformer and
+:meth:`ArchConfig.reduced` read (the distribution knobs of the JAX
+package stay there).
 
 ``pattern`` is the periodic block unit scanned over depth; block kinds:
   dense  — GQA self-attention (+optional sliding window) + MLP
@@ -42,10 +43,12 @@ class ArchConfig:
     moe: MoEConfig | None = None
     rope_theta: float = 10_000.0
     head_dim: int | None = None
+    embed_inputs: bool = True          # False: frontend stub feeds embeddings
     n_img_tokens: int = 0              # vlm stub: image patch embeddings
     act: str = "swiglu"
     dtype: str = "bfloat16"
     sublinear_attention: bool = False  # True iff long_500k is runnable
+    kv_dtype: str | None = None        # "int8": quantized KV cache
     notes: str = ""
 
     @property

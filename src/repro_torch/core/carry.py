@@ -11,10 +11,12 @@ alltoallv's extract tables) to the device once per plan, so the
 executor's loop makes no host-to-device copy — which also keeps the way
 open to capturing a whole plan in one CUDA graph.
 
-The MoE layer carries weights: :func:`params_from_numpy` takes the JAX
-package's parameter tree as numpy arrays (``jax.tree.map(np.asarray,
-init_moe(...))``) to the port's tensors, so the two packages can be held
-against each other on the same weights.
+The models carry weights and caches: :func:`params_from_numpy` takes the
+JAX package's MoE parameter tree as numpy arrays (``jax.tree.map(
+np.asarray, init_moe(...))``) to the port's tensors, and
+:func:`model_params_from_numpy` / :func:`cache_from_numpy` do the same for
+a whole transformer's weights and decode caches, so the two packages can
+be held against each other on the same weights.
 """
 from __future__ import annotations
 
@@ -203,7 +205,63 @@ def params_from_numpy(tree: dict, device=None) -> dict:
     shared experts, ``shared`` (``wi``, ``wg``, ``wo``), as tensors on
     ``device`` (the current CUDA device when ``None``), each in its
     array's own dtype."""
-    device = resolve_device(device)
-    return {name: ({k: _tensor(v, device) for k, v in a.items()}
-                   if isinstance(a, dict) else _tensor(a, device))
-            for name, a in tree.items()}
+    return _tree_from_numpy(tree, resolve_device(device))
+
+
+def _tree_from_numpy(tree, device):
+    """Every array of a tree of dicts and lists as a tensor on ``device``,
+    in its own dtype."""
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_from_numpy(v, device) for v in tree]
+    return _tensor(np.asarray(tree), device)
+
+
+def _index(tree, i: int):
+    """Row ``i`` of every leaf of a stacked tree."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_index(v, i) for v in tree]
+    return np.asarray(tree)[i]
+
+
+def _grouped_from_numpy(tree: dict, device) -> dict:
+    """A tree grouped as the transformer's (``first``, ``body``, ``tail``
+    and any other keys) with the reference's scanned ``body`` (one entry
+    per block of the pattern, each stacked over the periods) unstacked
+    into a list of periods, each a list of blocks."""
+    out = {k: _tree_from_numpy(v, device) for k, v in tree.items()
+           if k != "body"}
+    body = tree.get("body")
+    if body:
+        n_periods = len(np.asarray(_first_leaf(body[0])))
+        out["body"] = [[_tree_from_numpy(_index(blk, n), device)
+                        for blk in body] for n in range(n_periods)]
+    else:
+        out["body"] = []
+    return out
+
+
+def _first_leaf(tree):
+    while isinstance(tree, (dict, list, tuple)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) \
+            else tree[0]
+    return tree
+
+
+def model_params_from_numpy(tree: dict, device=None) -> dict:
+    """The port's transformer weights from the reference's parameter tree
+    of numpy arrays (``jax.tree.map(np.asarray, init_params(key, cfg))``),
+    as tensors on ``device`` (the current CUDA device when ``None``) in
+    their arrays' own dtypes, the scanned body unstacked along its
+    leading period axis."""
+    return _grouped_from_numpy(tree, resolve_device(device))
+
+
+def cache_from_numpy(tree: dict, device=None) -> dict:
+    """The port's decode caches from the reference's (``init_cache`` or a
+    prefill's or decode step's output, as numpy arrays), unstacked like
+    :func:`model_params_from_numpy`; each ``pos`` a 0-d int32 tensor."""
+    return _grouped_from_numpy(tree, resolve_device(device))

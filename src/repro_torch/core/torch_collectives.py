@@ -30,6 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.kernels import backend as kernel_backend
 from repro_torch.kernels.ragged_gather import ops as slab_ops
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import REGISTRY as _OBS_REGISTRY
@@ -667,16 +668,16 @@ def plan_allreducev(sizes, bucket_rounds: int = 1, segments: int = 1,
 # --------------------------------------------------------------------------
 
 def use_kernel_dataplane(enable: bool | None) -> None:
-    """Select the data-plane backend (the counterpart of
+    """Select the kernel backend (the counterpart of
     ``use_pallas_dataplane``): the slab ops of the executors, the pack
-    ops and the MoE layer's gathers all follow it.
+    ops, the MoE layer's gathers and attention's K8 all follow it.
 
-    ``None`` (default) runs the CUDA kernels K1–K7 exactly when the
+    ``None`` (default) runs the CUDA kernels K1–K8 exactly when the
     tensor is on CUDA and their plain versions on the CPU; ``True``
     demands the kernels and raises for a CPU tensor; ``False`` runs the
     plain PyTorch versions on any device.
     """
-    slab_ops.use_kernels(enable)
+    kernel_backend.use_kernels(enable)
 
 
 def _slab_ops(reduce: bool = False):

@@ -8,8 +8,14 @@ version:
                   ``ragged_gather/csrc/slab_reduce.cu``; and the
                   pack/unpack row moves through an index map (K6
                   ragged_gather, K7 ragged_scatter) in
-                  ``ragged_gather/csrc/pack.cu``.
+                  ``ragged_gather/csrc/pack.cu``;
+  flash_attention — blocked online-softmax attention (K8), CUDA C++ in
+                  ``flash_attention/csrc/flash.cu``.
+
+``backend`` holds the one switch between the kernels and their plain
+versions and the launch counts of every wrapper.
 """
+from .flash_attention import flash_attention  # noqa: F401
 from .ragged_gather.ops import (LAUNCHES, pack_blocks,  # noqa: F401
                                 ragged_gather, ragged_scatter,
                                 reset_launches, slab_extract, slab_merge,

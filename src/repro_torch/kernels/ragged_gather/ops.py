@@ -5,58 +5,22 @@ K6–K7 pack and unpack rows through an index map (``pack_blocks``,
 
 A tensor on the CPU goes to the plain PyTorch version in ``ref.py``; a
 CUDA tensor launches the hand-written kernel in ``kernel.py`` or raises.
-There is no fallback from one to the other.  :func:`use_kernels` (behind
-``core.use_kernel_dataplane``) can send every tensor to the plain
-versions, or demand the kernels.  ``LAUNCHES`` counts the kernel
-launches of each wrapper (and nothing else), so a run can show that its
-main path went through the kernels.
+The switch (``use_kernels``, behind ``core.use_kernel_dataplane``) and the
+launch counts (``LAUNCHES``) live in ``kernels.backend``, shared with
+attention's K8.
 """
 from __future__ import annotations
 
 import torch
 
+from ..backend import LAUNCHES, reset_launches, use_kernel  # noqa: F401
 from . import kernel, ref
-
-LAUNCHES = {"slab_extract": 0, "slab_merge": 0, "slab_step": 0,
-            "slab_merge_add": 0, "slab_step_reduce": 0, "ragged_gather": 0,
-            "ragged_scatter": 0}
-
-# None = the kernel exactly when the tensor is on CUDA; True = the kernel,
-# and a CPU tensor is an error; False = the plain version on any device.
-_KERNELS: bool | None = None
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def use_kernels(enable: bool | None) -> None:
-    """Select the backend of every wrapper here: ``None`` (default) the
-    kernels on CUDA tensors and the plain versions on CPU tensors,
-    ``True`` the kernels only (a CPU tensor raises), ``False`` the plain
-    versions on any device."""
-    global _KERNELS
-    _KERNELS = enable
-
-
-def _use_kernel(t: torch.Tensor) -> bool:
-    """Whether the wrapper launches its kernel for ``t``."""
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"the data-plane ops run on cpu or cuda tensors, "
-                         f"not {t.device}")
-    if _KERNELS is False:
-        return False
-    if _KERNELS and t.device.type != "cuda":
-        raise ValueError("use_kernel_dataplane(True) needs CUDA tensors, "
-                         f"got one on {t.device}")
-    return t.device.type == "cuda"
 
 
 def slab_extract(buf: torch.Tensor, start: torch.Tensor,
                  rows: int) -> torch.Tensor:
     """K1: ``out[r, i] = buf[r, place(start[r]) + i]`` → ``(P, rows, F)``."""
-    if not _use_kernel(buf):
+    if not use_kernel(buf):
         return ref.slab_extract_ref(buf, start, rows)
     out = kernel.slab_extract_cuda(buf, start, rows)
     LAUNCHES["slab_extract"] += 1
@@ -67,7 +31,7 @@ def slab_merge(buf: torch.Tensor, slab: torch.Tensor, start: torch.Tensor,
                valid: torch.Tensor) -> torch.Tensor:
     """K2, in place: the ``valid``-row prefix of ``slab`` into ``buf`` at
     ``start``.  Returns ``buf``."""
-    if not _use_kernel(buf):
+    if not use_kernel(buf):
         return ref.slab_merge_ref(buf, slab, start, valid)
     kernel.slab_merge_cuda(buf, slab, start, valid)
     LAUNCHES["slab_merge"] += 1
@@ -79,7 +43,7 @@ def slab_step(buf: torch.Tensor, got: torch.Tensor, recv_start: torch.Tensor,
               rows_out: int) -> tuple[torch.Tensor, torch.Tensor]:
     """K3: merge ``got`` in place, then extract the next ``rows_out`` rows
     at ``send_start`` from the merged buffer.  Returns ``(buf, slab)``."""
-    if not _use_kernel(buf):
+    if not use_kernel(buf):
         return ref.slab_step_ref(buf, got, recv_start, recv_valid,
                                  send_start, rows_out)
     out = kernel.slab_step_cuda(buf, got, recv_start, recv_valid,
@@ -92,7 +56,7 @@ def slab_merge_add(buf: torch.Tensor, slab: torch.Tensor,
                    start: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """K4, in place: add the ``valid``-row prefix of ``slab`` into ``buf``
     at ``start``; every other row keeps its bits.  Returns ``buf``."""
-    if not _use_kernel(buf):
+    if not use_kernel(buf):
         return ref.slab_merge_add_ref(buf, slab, start, valid)
     kernel.slab_merge_add_cuda(buf, slab, start, valid)
     LAUNCHES["slab_merge_add"] += 1
@@ -106,7 +70,7 @@ def slab_step_reduce(buf: torch.Tensor, got: torch.Tensor,
     """K5: fold ``got`` into ``buf`` in place, then extract the next
     ``rows_out`` rows at ``send_start`` from the updated buffer.  Returns
     ``(buf, slab)``."""
-    if not _use_kernel(buf):
+    if not use_kernel(buf):
         return ref.slab_step_reduce_ref(buf, got, recv_start, recv_valid,
                                         send_start, rows_out)
     out = kernel.slab_step_reduce_cuda(buf, got, recv_start, recv_valid,
@@ -118,7 +82,7 @@ def slab_step_reduce(buf: torch.Tensor, got: torch.Tensor,
 def ragged_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """K6: ``out[i] = x[clip(idx[i], 0, N - 1)]`` → ``(M, F)``, for any
     dtype and row width; ``idx`` is int32."""
-    if not _use_kernel(x):
+    if not use_kernel(x):
         return ref.ragged_gather_ref(x, idx)
     out, launched = kernel.ragged_gather_cuda(x, idx)
     LAUNCHES["ragged_gather"] += launched
@@ -142,7 +106,7 @@ def ragged_scatter(x: torch.Tensor, idx: torch.Tensor,
     """K7: ``out[idx[i]] = x[i]`` over a zero ``(n_out, F)`` buffer, for
     any dtype and row width; rows whose destination is outside
     ``[0, n_out)`` are dropped.  ``idx`` is int32."""
-    if not _use_kernel(x):
+    if not use_kernel(x):
         return ref.ragged_scatter_ref(x, idx, n_out)
     out, launched = kernel.ragged_scatter_cuda(x, idx, n_out)
     LAUNCHES["ragged_scatter"] += launched

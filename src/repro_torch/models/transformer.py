@@ -1,0 +1,275 @@
+"""Model assembly, the port of ``repro.models.transformer``: the layers
+grouped as ``first`` (e.g. DeepSeek's dense first layer), a body of full
+periods of ``cfg.pattern`` and a tail, with the caches grouped the same
+way.
+
+The reference scans its body over stacked period weights; here the body
+is a list of periods, each a list of blocks, run in a Python loop.  The
+reference's ``residual_constraint``, ``unshard_fsdp`` and remat are
+sharding and memory hints for the scan and have no counterpart on one
+device.
+
+Modes: ``train`` (no cache), ``prefill`` (full sequence, fills caches),
+``decode`` (one token against caches).  Block kinds ``dense``, ``moe``
+(the ported MoE layer, its gathers on K6) and ``local`` run here, their
+prefill attention on K8; ``rglru`` is ROADMAP item 9b, ``mlstm``,
+``slstm`` and ``cross`` item 9c.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..configs.base import ArchConfig
+from ..core.mesh import resolve_device
+from . import attention as attn
+from .layers import (embed, init_embedding, init_mlp, init_rmsnorm, mlp,
+                     rmsnorm, unembed)
+from .moe import init_moe, moe_apply
+
+_ATTN_KINDS = ("dense", "moe", "local")
+_UNPORTED = {"rglru": "ROADMAP item 9b (recurrentgemma's RG-LRU block on K9)",
+             "mlstm": "ROADMAP item 9c (the xLSTM blocks)",
+             "slstm": "ROADMAP item 9c (the xLSTM blocks)",
+             "cross": "ROADMAP item 9c (cross-attention of the VLM)"}
+
+
+def _check_kind(kind: str) -> None:
+    if kind in _UNPORTED:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet: "
+                                  f"{_UNPORTED[kind]}")
+    if kind not in _ATTN_KINDS:
+        raise ValueError(kind)
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _dense_cfg(cfg: ArchConfig) -> ArchConfig:
+    """Config view for DeepSeek-style dense first layers (plain wide MLP)."""
+    return cfg.with_(moe=None, d_ff=cfg.d_ff if cfg.d_ff else cfg.d_model * 4)
+
+
+def _init_block(kind: str, cfg: ArchConfig, generator: torch.Generator,
+                device) -> dict:
+    _check_kind(kind)
+    dt, d = _dtype(cfg), cfg.d_model
+    p = {"norm1": init_rmsnorm(d, dt, device),
+         "attn": attn.init_attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                     dt, generator, device),
+         "norm2": init_rmsnorm(d, dt, device)}
+    if kind == "moe":
+        p["ffn"] = init_moe(d, cfg.moe, dt, generator, device)
+    else:
+        p["ffn"] = init_mlp(d, cfg.d_ff, dt, generator, device, cfg.act)
+    return p
+
+
+def layer_plan(cfg: ArchConfig) -> tuple[list[str], int, list[str]]:
+    """(first kinds, number of body periods, tail kinds)."""
+    first = ["dense"] * (cfg.moe.first_dense if cfg.moe else 0)
+    rest = cfg.n_layers - len(first)
+    period = len(cfg.pattern)
+    n_periods = rest // period
+    tail = list(cfg.pattern[: rest - n_periods * period])
+    return first, n_periods, tail
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                device=None) -> dict:
+    """Random weights from ``generator``, one tensor at a time on
+    ``device`` (the current CUDA device when ``None``): each fp32 draw is
+    freed before the next, so a full-width model peaks near its own size
+    plus its largest draw.  The bits differ from ``jax.random``'s; carry
+    the reference's weights with ``core.carry.model_params_from_numpy``
+    to compare the two."""
+    device = resolve_device(device)
+    first, n_periods, tail = layer_plan(cfg)
+    dt = _dtype(cfg)
+    return {
+        "embed": init_embedding(cfg.vocab, cfg.d_model, dt, generator,
+                                device),
+        "final_norm": init_rmsnorm(cfg.d_model, dt, device),
+        "first": [_init_block(k, _dense_cfg(cfg), generator, device)
+                  for k in first],
+        "body": [[_init_block(k, cfg, generator, device)
+                  for k in cfg.pattern] for _ in range(n_periods)],
+        "tail": [_init_block(k, cfg, generator, device) for k in tail],
+    }
+
+
+def _apply_block(p: dict, kind: str, cfg: ArchConfig, x: torch.Tensor, *,
+                 cache: dict | None = None, mode: str = "train"):
+    """Returns ``(x, new_cache, aux_loss)``; ``aux_loss`` is None for a
+    block without one (the reference's zero), which saves a decode step
+    two launches a layer."""
+    _check_kind(kind)
+    aux = None
+    h = rmsnorm(p["norm1"], x)
+    new_cache = cache
+    window = cfg.local_window if kind == "local" else cfg.window
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+              head_dim=cfg.hd, rope_theta=cfg.rope_theta, window=window)
+    if mode == "decode":
+        a, kv = attn.attention_decode(p["attn"], h, cache["kv"], **kw)
+        new_cache = dict(cache, kv=kv)
+    elif mode == "prefill":
+        a, kv = attn.attention(p["attn"], h, cache=cache["kv"], **kw)
+        new_cache = dict(cache, kv=kv)
+    else:
+        a = attn.attention(p["attn"], h, **kw)
+    x = x + a
+    h2 = rmsnorm(p["norm2"], x)
+    if kind == "moe":
+        f, moe_aux = moe_apply(p["ffn"], h2, cfg.moe)
+        aux = moe_aux["balance_loss"]
+    else:
+        f = mlp(p["ffn"], h2, cfg.act)
+    return x + f, new_cache, aux
+
+
+def _blocks(cfg: ArchConfig):
+    """Every layer in order as ``(group, index, kind, block cfg)``, where
+    ``(group, index)`` addresses its weights and cache: ``("first", i)``,
+    ``("body", (period, j))``, ``("tail", i)``."""
+    first, n_periods, tail = layer_plan(cfg)
+    for i, kind in enumerate(first):
+        yield "first", i, kind, _dense_cfg(cfg)
+    for n in range(n_periods):
+        for j, kind in enumerate(cfg.pattern):
+            yield "body", (n, j), kind, cfg
+    for i, kind in enumerate(tail):
+        yield "tail", i, kind, cfg
+
+
+def _get(tree: dict, group: str, index):
+    if group == "body":
+        n, j = index
+        return tree["body"][n][j]
+    return tree[group][index]
+
+
+def _empty_like_groups(cfg: ArchConfig) -> dict:
+    _, n_periods, _ = layer_plan(cfg)
+    return {"first": [], "body": [[] for _ in range(n_periods)], "tail": []}
+
+
+def _put(tree: dict, group: str, index, value) -> None:
+    if group == "body":
+        tree["body"][index[0]].append(value)
+    else:
+        tree[group].append(value)
+
+
+def _run_layers(params: dict, cfg: ArchConfig, x: torch.Tensor,
+                cache: dict | None, mode: str):
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cache = _empty_like_groups(cfg) if cache is not None else None
+    for group, index, kind, bcfg in _blocks(cfg):
+        c = _get(cache, group, index) if cache is not None else None
+        x, c2, aux = _apply_block(_get(params, group, index), kind, bcfg, x,
+                                  cache=c, mode=mode)
+        if aux is not None:
+            aux_total = aux_total + aux
+        if cache is not None:
+            _put(new_cache, group, index, c2)
+    return x, aux_total, new_cache
+
+
+def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor | None = None,
+            embeds: torch.Tensor | None = None, cache: dict | None = None,
+            logits_last_only: bool = False):
+    """Full-sequence forward; mode ``train`` without a cache, ``prefill``
+    with one.  ``logits_last_only`` slices the residual stream to the last
+    position before the unembed (prefill needs only next-token logits).
+    Returns ``(logits, aux)`` or ``(logits, aux, new_cache)``."""
+    mode = "train" if cache is None else "prefill"
+    x = embed(params["embed"], tokens) if cfg.embed_inputs else embeds
+    x, aux_total, new_cache = _run_layers(params, cfg, x, cache, mode)
+    if logits_last_only:
+        x = x[:, -1:]
+    logits = unembed(params["embed"], rmsnorm(params["final_norm"], x))
+    if cache is None:
+        return logits, aux_total
+    return logits, aux_total, new_cache
+
+
+def _block_cache(kind: str, cfg: ArchConfig, batch: int, seq_len: int,
+                 device) -> dict:
+    _check_kind(kind)
+    if kind == "local":
+        S = min(seq_len, cfg.local_window or seq_len)
+    else:
+        S = min(seq_len, cfg.window) if cfg.window else seq_len
+    shape = (batch, S, cfg.n_kv_heads, cfg.hd)
+    pos = torch.zeros((), dtype=torch.int32, device=device)
+    if cfg.kv_dtype == "int8":   # quantized cache: 2x smaller + scales
+        return {"kv": {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                   device=device),
+            "v_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                   device=device),
+            "pos": pos}}
+    dt = _dtype(cfg)
+    return {"kv": {"k": torch.zeros(shape, dtype=dt, device=device),
+                   "v": torch.zeros(shape, dtype=dt, device=device),
+                   "pos": pos}}
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
+               device=None) -> dict:
+    """Decode caches for every layer, grouped like the params."""
+    device = resolve_device(device)
+    cache = _empty_like_groups(cfg)
+    for group, index, kind, bcfg in _blocks(cfg):
+        _put(cache, group, index, _block_cache(kind, bcfg, batch, seq_len,
+                                               device))
+    return cache
+
+
+def decode_step(params: dict, cfg: ArchConfig, cache: dict,
+                token: torch.Tensor | None = None,
+                embeds: torch.Tensor | None = None):
+    """One decode step.  token ``(B, 1)`` int (or embeds ``(B, 1, D)``).
+    Returns ``(logits (B, 1, V), new_cache)``; the caches are updated in
+    place."""
+    x = embed(params["embed"], token) if cfg.embed_inputs else embeds
+    x, _, new_cache = _run_layers(params, cfg, x, cache, "decode")
+    return unembed(params["embed"], rmsnorm(params["final_norm"], x)), \
+        new_cache
+
+
+class Transformer(nn.Module):
+    """The model as a module: :func:`forward`, :func:`decode_step` and
+    :func:`init_cache` over its weights, random from ``seed``
+    (:func:`init_params`) unless ``params`` is given (e.g. from
+    ``core.carry.model_params_from_numpy``).  Runs on the current CUDA
+    device unless ``device`` says otherwise; the weights stay where they
+    were made.  Inference only: K8 has no backward yet."""
+
+    def __init__(self, cfg: ArchConfig, device=None, seed: int = 0,
+                 params: dict | None = None):
+        super().__init__()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = init_params(cfg, gen, self.device)
+        self.params = params
+
+    def forward(self, tokens: torch.Tensor | None = None,
+                embeds: torch.Tensor | None = None,
+                cache: dict | None = None, logits_last_only: bool = False):
+        return forward(self.params, self.cfg, tokens=tokens, embeds=embeds,
+                       cache=cache, logits_last_only=logits_last_only)
+
+    def decode(self, cache: dict, token: torch.Tensor | None = None,
+               embeds: torch.Tensor | None = None):
+        return decode_step(self.params, self.cfg, cache, token=token,
+                           embeds=embeds)
+
+    def init_cache(self, batch: int, seq_len: int) -> dict:
+        return init_cache(self.cfg, batch, seq_len, self.device)

@@ -1,4 +1,4 @@
-"""K1–K7 on the card against their plain PyTorch versions.
+"""K1–K8 on the card against their plain PyTorch versions.
 
 Needs a CUDA device (marker ``gpu``); without one every test here skips.
 This file imports no JAX, so it runs on the GPU machine as it is:
@@ -63,7 +63,7 @@ def test_cuda_kernels_match_plain(cuda_device, dname):
     assert ops.LAUNCHES == {"slab_extract": 1, "slab_merge": 1,
                             "slab_step": 1, "slab_merge_add": 0,
                             "slab_step_reduce": 0, "ragged_gather": 0,
-                            "ragged_scatter": 0}
+                            "ragged_scatter": 0, "flash_attention": 0}
 
 
 def _send_windows(start, rows_in, rows_out):
@@ -259,3 +259,73 @@ def test_cuda_moe_small(cuda_device, groups):
         assert torch.equal(aux["load"], waux["load"])
         assert int(aux["dropped"]) == int(waux["dropped"])
     assert int(aux["dropped"]) > 0
+
+
+FLASH_CASES = [
+    # dtype, B, H, Hkv, T, S, hd, causal, window
+    ("bf16", 2, 4, 2, 256, 256, 64, True, None),
+    ("bf16", 1, 8, 2, 77, 77, 128, True, None),        # odd T, GQA 4
+    ("bf16", 1, 4, 1, 300, 300, 256, True, 100),       # hd 256, window
+    ("bf16", 1, 4, 2, 100, 140, 32, False, 30),        # T != S, empty rows
+    ("fp32", 2, 4, 2, 256, 256, 64, True, 128),
+    ("fp32", 1, 4, 2, 77, 99, 16, True, None),          # odd T and S
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=["-".join(map(str, c)) for c in FLASH_CASES])
+def test_cuda_flash_attention_matches_plain(cuda_device, case):
+    """K8 on the card against its plain version on the same inputs, at the
+    JAX package's tolerances (2e-2 in bf16: the probabilities round to
+    bf16 for the second product and the output to bf16; 2e-5 in fp32:
+    plain FMAs summed in another order); rows with no visible key are 0."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    dname, B, H, Hkv, T, S, hd, causal, window = case
+    tdt = DTYPES[dname]
+    g = torch.Generator(device=cuda_device).manual_seed(T + hd)
+    q = torch.randn((B, H, T, hd), generator=g, device=cuda_device).to(tdt)
+    k = torch.randn((B, Hkv, S, hd), generator=g, device=cuda_device).to(tdt)
+    v = torch.randn((B, Hkv, S, hd), generator=g, device=cuda_device).to(tdt)
+    ops.reset_launches()
+    got = fops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    want = fref.attention_ref(q, k, v, causal=causal, window=window)
+    tol = 2e-5 if dname == "fp32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # the same call on the model's (B, T, H, hd) layout, as strided views
+    qt, kt = q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous()
+    vt = v.transpose(1, 2).contiguous()
+    got_t = fops.flash_attention(qt.transpose(1, 2), kt.transpose(1, 2),
+                                 vt.transpose(1, 2), causal=causal,
+                                 window=window)
+    assert torch.equal(got_t, got)
+
+
+@pytest.mark.gpu
+def test_cuda_reduced_yi_forward_launches_k8_once_a_layer(cuda_device):
+    """A reduced yi-6b on the card: one forward launches K8 once a layer,
+    a decode step never, and the logits match the plain versions."""
+    import repro_torch as rt
+    from repro_torch.models.transformer import Transformer
+
+    cfg = rt.get_config("yi-6b").reduced()
+    model = Transformer(cfg, seed=3)
+    toks = torch.arange(40, device=cuda_device).reshape(2, 20) % cfg.vocab
+    ops.reset_launches()
+    cache = model.init_cache(2, 24)
+    logits, _, cache = model(toks, cache=cache, logits_last_only=True)
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    ops.reset_launches()
+    model.decode(cache, toks[:, :1])
+    assert ops.LAUNCHES["flash_attention"] == 0
+    try:
+        rt.use_kernel_dataplane(False)
+        want, _ = model(toks)
+    finally:
+        rt.use_kernel_dataplane(None)
+    torch.testing.assert_close(logits[:, -1], want[:, -1], rtol=1e-4,
+                               atol=1e-4)

@@ -45,6 +45,16 @@ cfg = rt.get_config("deepseek-moe-16b").reduced()
 out, aux = rt.MoE(cfg.d_model, cfg.moe, dtype=torch.float32,
                   device="cpu")(torch.randn(2, 4, cfg.d_model))
 assert out.shape == (2, 4, cfg.d_model) and int(aux["load"].sum()) == 16
+from repro_torch.kernels.flash_attention import flash_attention
+q = torch.randn(1, 4, 9, 16)
+assert flash_attention(q, q[:, :2], q[:, :2], window=3).shape == q.shape
+from repro_torch.models.transformer import Transformer
+from repro_torch.launch import serve
+cfg = rt.get_config("yi-6b").reduced()
+model = Transformer(cfg, device="cpu")
+res = serve.serve_requests(model.params, cfg, [np.arange(5), np.arange(3)],
+                           batch=2, gen=2, device="cpu")
+assert [len(t) for t in res["tokens"]] == [3, 3]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
@@ -72,7 +82,8 @@ def _port_files():
 def test_no_source_imports_jax_or_repro():
     files = list(_port_files())
     assert len(files) > 10
-    for sub in ("core", "kernels", "models", "configs"):
+    for sub in ("core", "kernels", "models", "configs", "train", "launch",
+                "flash_attention"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
     for path in files:
         with open(path) as fh:
