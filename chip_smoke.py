@@ -5,8 +5,9 @@
 
 Needs one CUDA device and ``nvcc`` (the kernels are built from
 ``src/repro_torch/kernels/ragged_gather/csrc/slab.cu``, ``slab_reduce.cu``,
-``pack.cu`` and ``src/repro_torch/kernels/flash_attention/csrc/flash.cu``
-on first use, one ``nvcc`` each, all at once).
+``pack.cu``, ``src/repro_torch/kernels/flash_attention/csrc/flash.cu`` and
+``src/repro_torch/kernels/rg_lru/csrc/rglru.cu`` on first use, one
+``nvcc`` each, all at once).
 Phases, in order; any failure raises and the exit code is nonzero:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the
@@ -65,10 +66,32 @@ Phases, in order; any failure raises and the exit code is nonzero:
    over the 260 tokens; both checks again with fp32 activations on the
    same weights, within 1e-3 (32 bf16 layers of rounding alone come near
    2e-2); prefill and decode times, tokens/s, peak memory and a
-   ``torch.profiler`` breakdown of a prefill and a decode step.
+   ``torch.profiler`` breakdown of a prefill and a decode step;
+8. the recurrent serving path, recurrentgemma-2b at its published widths
+   and full depth (26 layers: 8 periods of two RG-LRU blocks and a local
+   attention block, then two RG-LRU blocks; d_model 2560, 10 heads with
+   MQA kv=1, hd 256, d_ff 7680, vocab 256000, window 2048; bf16, random
+   weights from the seed): (a) K9 against its plain version (1e-5) at the
+   prefill's shape with h0 = 0 and with a random h0, an odd shape (B 3, T
+   1000, D 2558) and T = 1, each timed beside its bound; (b)
+   ``serve_requests`` on 8 requests of 2049–3072 prompt tokens (past the
+   window, so the ring wraps in prefill and in decode) in batches of 4, 32
+   greedy tokens each, K8 and K9 required, with times, tokens/s, peak
+   memory and a profile of a prefill and a decode step; (c) checks: one
+   prefill launches K9 once an RG-LRU block and K8 once a local block, a
+   decode step neither, finite logits; with fp32 activations on the same
+   weights, the prefill against the plain versions and prefill + 4 decode
+   steps against ``forward`` over 2104 tokens within 1e-3; in bf16, every
+   block fed the plain path's hidden state through the kernels within
+   2e-2 of the plain versions; the bf16 full-depth readings (as in phase
+   7) within a gate of ``max(2e-2, 2 x floor)``, the floor being the move
+   of the prefill's last logits when 1, 10 and 1000 embedded input
+   elements move by one bf16 ulp, measured in the same run; and a planted
+   fault (one local block at half its window, set through the config) must
+   fail the per-block check and pass the gate.
 
 The line before the last is a JSON object with one entry per kernel
-(K1–K8); the last is ``{"ok": true, "device": {...}}``.
+(K1–K9); the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -110,6 +133,12 @@ SERVE_PROMPT = (1024, 2048)   # prompt lengths, drawn from the seed
 SERVE_TOL = 2e-2       # relative Frobenius, bf16 logits of two orders
 MECH_TOL = 1e-3        # the same with fp32 activations (products reordered)
 CONSIST_T, CONSIST_STEPS = 256, 4
+RG_ARCH = "recurrentgemma-2b"
+RG_PROMPT = (2049, 3072)      # past the 2048-token local window
+RG_CONSIST_T = 2100           # prefill past the window, then decode steps
+RG_FLOOR_ELEMENTS = (1, 10, 1000)   # embedded inputs moved by one bf16 ulp
+RG_FAULT_WINDOW = 1024        # the planted fault: one local block's window
+RGLRU_TOL = 1e-5              # K9 vs plain (the reference's Pallas tolerance)
 CSRC = "src/repro_torch/kernels/ragged_gather/csrc/"
 SOURCES = {"slab_extract": CSRC + "slab.cu", "slab_merge": CSRC + "slab.cu",
            "slab_step": CSRC + "slab.cu",
@@ -118,7 +147,8 @@ SOURCES = {"slab_extract": CSRC + "slab.cu", "slab_merge": CSRC + "slab.cu",
            "ragged_gather": CSRC + "pack.cu",
            "ragged_scatter": CSRC + "pack.cu",
            "flash_attention":
-               "src/repro_torch/kernels/flash_attention/csrc/flash.cu"}
+               "src/repro_torch/kernels/flash_attention/csrc/flash.cu",
+           "rglru_scan": "src/repro_torch/kernels/rg_lru/csrc/rglru.cu"}
 REPLACES = {"slab_extract": "src/repro/kernels/ragged_gather/kernel.py:123",
             "slab_merge": "src/repro/kernels/ragged_gather/kernel.py:277",
             "slab_step": "src/repro/kernels/ragged_gather/kernel.py:168",
@@ -128,7 +158,8 @@ REPLACES = {"slab_extract": "src/repro/kernels/ragged_gather/kernel.py:123",
             "ragged_gather": "src/repro/kernels/ragged_gather/kernel.py:53",
             "ragged_scatter": "src/repro/kernels/ragged_gather/kernel.py:92",
             "flash_attention":
-                "src/repro/kernels/flash_attention/kernel.py:78"}
+                "src/repro/kernels/flash_attention/kernel.py:78",
+            "rglru_scan": "src/repro/kernels/rg_lru/kernel.py:43"}
 
 
 def log(*a) -> None:
@@ -484,7 +515,11 @@ def _profiled(label: str, fns: dict, reps: int = 3) -> dict:
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[e.key[:90]] = (us / 1e3 / reps, e.count // reps)
+            # names cut to 90 characters can collide (two instantiations
+            # of one template): add them up, never overwrite
+            ms, n = by_kernel.get(e.key[:90], (0.0, 0))
+            by_kernel[e.key[:90]] = (ms + us / 1e3 / reps,
+                                     n + e.count // reps)
     busy_ms = sum(ms for ms, _ in by_kernel.values())
     log(f"  {label} launches per call {per_call}")
     if not by_kernel:
@@ -1054,13 +1089,15 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
 
 
-def serve_setup(dev) -> dict:
-    """yi-6b's config, its random weights on the card (from the seed) and
-    the request queue (prompt lengths and tokens from the seed)."""
+def serve_setup(dev, arch: str = SERVE_ARCH,
+                prompt: tuple = SERVE_PROMPT) -> dict:
+    """``arch``'s config, its random weights on the card (from the seed)
+    and the request queue (prompt lengths in ``prompt`` and tokens, from
+    the seed)."""
     import repro_torch as rt
     from repro_torch.models.transformer import init_params
 
-    cfg = rt.get_config(SERVE_ARCH).with_(dtype=SERVE_DTYPE)
+    cfg = rt.get_config(arch).with_(dtype=SERVE_DTYPE)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                          dev)
@@ -1068,20 +1105,20 @@ def serve_setup(dev) -> dict:
     init_s = time.perf_counter() - t0
     leaves = [t for _, t in _tensors(params)]
     rng = np.random.default_rng(SEED)
-    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    lens = rng.integers(prompt[0], prompt[1] + 1, SERVE_REQUESTS)
     queue = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
     ctx = {"cfg": cfg, "params": params, "queue": queue, "lens": lens,
            "rng": rng, "init_s": init_s,
            "parameters": sum(t.numel() for t in leaves),
            "weight_bytes": sum(t.numel() * t.element_size() for t in leaves)}
-    log(f"  {SERVE_ARCH}: {ctx['parameters']} parameters, "
+    log(f"  {arch}: {ctx['parameters']} parameters, "
         f"{ctx['weight_bytes']} bytes, made in {init_s:.2f} s; prompt "
         f"lengths {lens.tolist()}")
     return ctx
 
 
 def serve_main(dev, ctx: dict) -> dict:
-    """Phase 7b's main path: the requests served through
+    """Phase 7b's and 8b's main path: the requests served through
     ``serve_requests`` as a user calls it."""
     from repro_torch.kernels import backend
     from repro_torch.launch.serve import serve_requests
@@ -1098,7 +1135,7 @@ def serve_main(dev, ctx: dict) -> dict:
     n_batches = len(res["prefill_s"])
     prefill_ms = [1e3 * x for x in res["prefill_s"]]
     decode_ms = 1e3 * sum(res["decode_s"]) / (n_batches * SERVE_GEN)
-    out = {"arch": SERVE_ARCH, "dtype": SERVE_DTYPE, "layers": cfg.n_layers,
+    out = {"arch": cfg.name, "dtype": SERVE_DTYPE, "layers": cfg.n_layers,
            "parameters": ctx["parameters"],
            "weight_bytes": ctx["weight_bytes"], "init_s": ctx["init_s"],
            "prompt_lens": ctx["lens"].tolist(), "batch": SERVE_BATCH,
@@ -1107,12 +1144,23 @@ def serve_main(dev, ctx: dict) -> dict:
            "tokens_per_s": res["tokens_out"] / res["wall_s"],
            "decode_tokens_per_s": res["tokens_out"] / sum(res["decode_s"]),
            "wall_s": res["wall_s"], "peak_bytes": peak,
-           "k8_launches": backend.LAUNCHES["flash_attention"]}
+           "k8_launches": backend.LAUNCHES["flash_attention"],
+           "k9_launches": backend.LAUNCHES["rglru_scan"]}
     log(f"  served {len(res['tokens'])} requests in {n_batches} batches: "
         f"prefill ms {prefill_ms}, decode ms/step {decode_ms:.3f}, "
         f"{out['tokens_per_s']:.1f} tokens/s over {res['wall_s']:.2f} s "
         f"({out['decode_tokens_per_s']:.1f} in decode), peak {peak} bytes")
     return out
+
+
+def first_batch(queue: list, dev) -> torch.Tensor:
+    """The first ``SERVE_BATCH`` prompts, left-padded as
+    ``serve_requests`` pads them, on the card."""
+    plen = max(len(p) for p in queue[:SERVE_BATCH])
+    toks = np.zeros((SERVE_BATCH, plen), np.int32)
+    for i, p in enumerate(queue[:SERVE_BATCH]):
+        toks[i, plen - len(p):] = p
+    return torch.from_numpy(toks).to(dev)
 
 
 def serve_checks(dev, ctx: dict) -> tuple[dict, dict]:
@@ -1146,11 +1194,8 @@ def serve_checks(dev, ctx: dict) -> tuple[dict, dict]:
     def dec(c, cache, tok):
         return decode_step(params, c, cache, **inputs(c, tok, "token"))
 
-    plen = max(len(p) for p in queue[:SERVE_BATCH])
-    toks = np.zeros((SERVE_BATCH, plen), np.int32)
-    for i, p in enumerate(queue[:SERVE_BATCH]):
-        toks[i, plen - len(p):] = p
-    toks = torch.from_numpy(toks).to(dev)
+    toks = first_batch(queue, dev)
+    plen = toks.shape[1]
 
     def prefill(c=cfg):
         logits, _, cache = fwd(c, toks, init_cache(c, SERVE_BATCH,
@@ -1213,6 +1258,274 @@ def serve_checks(dev, ctx: dict) -> tuple[dict, dict]:
                  **errs}
 
 
+# ---------------------------------------------------------------- phase 8
+
+def rglru_case(dev, label, B, T, D, random_h0, plain_reps: int = 3) -> dict:
+    """One K9 case: against its plain version at 1e-5, then timed
+    (``cold_ms``) beside its bound.  No single PyTorch call computes this
+    recurrence, so there is no library time."""
+    from repro_torch.kernels.rg_lru import ops as rops
+    from repro_torch.kernels.rg_lru import ref as rref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + B * T + D)
+    a = torch.rand((B, T, D), generator=g, device=dev)
+    b = torch.randn((B, T, D), generator=g, device=dev)
+    h0 = (torch.randn((B, D), generator=g, device=dev) if random_h0
+          else torch.zeros((B, D), device=dev))
+    got = rops.rglru_scan(a, b, h0)
+    want = rref.rglru_scan_ref(a, b, h0)
+    err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+    if not all(torch.allclose(x, y, rtol=RGLRU_TOL, atol=RGLRU_TOL)
+               for x, y in zip(got, want)):
+        raise AssertionError(f"K9 {label} differs from its plain version: "
+                             f"max abs err {err} (tolerance {RGLRU_TOL})")
+    del got, want
+    ms = cold_ms(lambda: rops.rglru_scan(a, b, h0), KERNEL_REPS)
+    plain_ms = cold_ms(lambda: rref.rglru_scan_ref(a, b, h0), plain_reps)
+    # read a, b and h0 once, write h and h_last once; one multiply-add an
+    # element in fp32
+    nbytes = 4 * (3 * B * T * D + 2 * B * D)
+    flops = 2 * B * T * D
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    compute_ms = flops / FLOPS_PER_S[torch.float32] * 1e3
+    bound_ms = max(bytes_ms, compute_ms)
+    log(f"  {label:44s} bytes={nbytes} kernel_ms={ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({100 * bound_ms / ms:.1f} %) "
+        f"plain_ms={plain_ms:.3f} max_abs_err={err}")
+    return {"case": label, "max_abs_err": err, "tolerance": RGLRU_TOL,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= compute_ms else "operations",
+            "library_ms": None, "bytes": nbytes, "flop": flops}
+
+
+def rglru_kernel_phase(dev, ctx: dict, record: dict) -> list[dict]:
+    """Phase 8a: K9 against its plain version at the prefill's shape (the
+    first batch's padded length) with h0 = 0 and a random h0, at an odd
+    shape and at T = 1; the first case fills the kernels line."""
+    T = int(max(ctx["lens"][:SERVE_BATCH]))
+    D = ctx["cfg"].d_model
+    cases = [
+        rglru_case(dev, f"prefill B{SERVE_BATCH} T{T} D{D} h0=0",
+                   SERVE_BATCH, T, D, False),
+        rglru_case(dev, f"prefill B{SERVE_BATCH} T{T} D{D} random h0",
+                   SERVE_BATCH, T, D, True),
+        rglru_case(dev, "odd B3 T1000 D2558 random h0", 3, 1000, 2558, True),
+        rglru_case(dev, f"T=1 B{SERVE_BATCH} D{D} random h0", SERVE_BATCH, 1,
+                   D, True),
+    ]
+    main = cases[0]
+    record["rglru_scan"] = {
+        "name": "rglru_scan", "route": "cuda",
+        "source": SOURCES["rglru_scan"],
+        "replaces": REPLACES["rglru_scan"], "launches": 0,
+        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")}}
+    torch.cuda.empty_cache()
+    return cases
+
+
+def rg_checks(dev, ctx: dict) -> tuple[dict, dict]:
+    """Phase 8c: launches and finite logits; the fp32 view at full depth;
+    bf16 block by block; bf16 at full depth against a noise floor measured
+    here; a planted fault that both must catch.  Returns the thunks of a
+    prefill and a decode step (for the profile) and the numbers; raises,
+    after logging them, if any check failed."""
+    import repro_torch as rt
+    from repro_torch.kernels import backend
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import embed, rmsnorm, unembed
+
+    cfg, params, queue, rng = (ctx["cfg"], ctx["params"], ctx["queue"],
+                               ctx["rng"])
+    # fp32 activations and caches on the same weights (as phase 7), and
+    # bf16 fed from embeddings (for the floor's moved inputs)
+    cfg32 = cfg.with_(dtype="float32", embed_inputs=False)
+    cfg_e = cfg.with_(embed_inputs=False)
+    table = params["embed"]["e"]
+
+    def plain(fn):
+        rt.use_kernel_dataplane(False)
+        try:
+            return fn()
+        finally:
+            rt.use_kernel_dataplane(None)
+
+    def kw(c, toks, name, embeds=None):
+        if embeds is not None:
+            return {"embeds": embeds}
+        if c.embed_inputs:
+            return {name: toks}
+        return {"embeds": table[toks].to(getattr(torch, c.dtype))}
+
+    toks = first_batch(queue, dev)
+    plen = toks.shape[1]
+    cache_len = plen + SERVE_GEN
+
+    def prefill(c=cfg, embeds=None):
+        logits, _, cache = tf.forward(
+            params, c, cache=tf.init_cache(c, SERVE_BATCH, cache_len, dev),
+            logits_last_only=True, **kw(c, toks, "tokens", embeds))
+        return logits, cache
+
+    def dec(c, cache, tok):
+        return tf.decode_step(params, c, cache, **kw(c, tok, "token"))
+
+    def consist(c, seq):
+        """Prefill of RG_CONSIST_T tokens then decode steps against
+        ``forward`` over the same tokens (batch 1; the ring wraps)."""
+        T = RG_CONSIST_T
+        full = tf.forward(params, c, **kw(c, seq, "tokens"))[0]
+        want = full[:, T - 1:T + CONSIST_STEPS].clone()
+        del full
+        first, _, c1 = tf.forward(
+            params, c, cache=tf.init_cache(c, 1, T + CONSIST_STEPS, dev),
+            logits_last_only=True, **kw(c, seq[:, :T], "tokens"))
+        outs = [first]
+        for i in range(CONSIST_STEPS):
+            out, c1 = dec(c, c1, seq[:, T + i:T + i + 1])
+            outs.append(out)
+        return _rel(torch.cat(outs, 1), want)
+
+    # 1. launches a prefill and a decode step; finite logits
+    n_rec = sum(k == "rglru" for _, _, k, _ in tf._blocks(cfg))
+    n_local = sum(k == "local" for _, _, k, _ in tf._blocks(cfg))
+    backend.reset_launches()
+    logits, cache = prefill()
+    once = {k: backend.LAUNCHES[k] for k in ("rglru_scan", "flash_attention")}
+    cur = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    backend.reset_launches()
+    dlogits, cache = dec(cfg, cache, cur)
+    torch.cuda.synchronize(dev)
+    in_decode = {k: backend.LAUNCHES[k]
+                 for k in ("rglru_scan", "flash_attention")}
+    if once != {"rglru_scan": n_rec, "flash_attention": n_local} or any(
+            in_decode.values()):
+        raise AssertionError(f"a prefill launched {once} (want K9 {n_rec}, "
+                             f"K8 {n_local} times), a decode step "
+                             f"{in_decode} (want none)")
+    if not (bool(torch.isfinite(logits).all())
+            and bool(torch.isfinite(dlogits).all())):
+        raise AssertionError("non-finite logits in prefill or decode")
+
+    # 2. the fp32 view at full depth
+    seq = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, RG_CONSIST_T + CONSIST_STEPS)).astype(
+            np.int32)).to(dev)
+    errs = {}
+    k32 = prefill(cfg32)[0]
+    p32 = plain(lambda: prefill(cfg32)[0])
+    errs["prefill_vs_plain_fp32"] = _rel(k32[:, -1], p32[:, -1])
+    del k32, p32
+    errs["prefill_decode_vs_forward_fp32"] = consist(cfg32, seq)
+
+    # 3. bf16 block by block, each fed the plain path's hidden state
+    blocks = list(tf._blocks(cfg))
+
+    def run_block(i, x, bcfg=None):
+        group, index, kind, bc = blocks[i]
+        bc = bcfg or bc
+        c = tf._block_cache(kind, bc, SERVE_BATCH, cache_len, dev)
+        return tf._apply_block(tf._get(params, group, index), kind, bc, x,
+                               cache=c, mode="prefill")[0]
+
+    def last_logits(x):
+        return unembed(params["embed"], rmsnorm(params["final_norm"],
+                                                x[:, -1:]))
+
+    def plain_pass():
+        for i in range(len(blocks)):
+            hidden.append(run_block(i, hidden[i]))
+
+    hidden = [embed(params["embed"], toks)]
+    plain(plain_pass)
+    plain_last = last_logits(hidden[-1])
+    backend.reset_launches()
+    per_block = [_rel(run_block(i, hidden[i]), hidden[i + 1])
+                 for i in range(len(blocks))]
+    block_launches = {k: backend.LAUNCHES[k]
+                      for k in ("rglru_scan", "flash_attention")}
+    if block_launches != once:
+        raise AssertionError(f"the per-block pass launched {block_launches}, "
+                             f"a prefill {once}")
+    fault = next(i for i, b in enumerate(blocks) if b[2] == "local")
+    fault_cfg = blocks[fault][3].with_(local_window=RG_FAULT_WINDOW)
+    fault_block = _rel(run_block(fault, hidden[fault], fault_cfg),
+                       hidden[fault + 1])
+
+    # 4. bf16 at full depth, against the floor of one-ulp input moves
+    errs["prefill_vs_plain_bf16"] = _rel(logits[:, -1], plain_last[:, -1])
+    errs["prefill_decode_vs_forward_bf16"] = consist(cfg, seq)
+    emb = hidden[0]
+    base = prefill(cfg_e, emb)[0]
+    floor = {}
+    for n in RG_FLOOR_ELEMENTS:
+        moved = emb.clone()
+        idx = torch.from_numpy(rng.choice(moved.numel(), n, replace=False))
+        moved.view(torch.int16).view(-1)[idx.to(dev)] += 1
+        floor[n] = _rel(prefill(cfg_e, moved)[0][:, -1], base[:, -1])
+        del moved
+    gate = max(SERVE_TOL, 2 * max(floor.values()))
+
+    # 5. the planted fault at full depth
+    x = hidden[0]
+    for i in range(len(blocks)):
+        x = run_block(i, x, fault_cfg if i == fault else None)
+    fault_full = _rel(last_logits(x)[:, -1], plain_last[:, -1])
+    del x, hidden, base, emb
+
+    log(f"  checks: one prefill launches {once}, a decode step {in_decode}; "
+        f"relative errors {errs} (limits: fp32 view {MECH_TOL}, bf16 gate "
+        f"{gate})")
+    log(f"  bf16 per block (limit {SERVE_TOL}): max {max(per_block)} at "
+        f"block {int(np.argmax(per_block))}; {per_block}")
+    log(f"  bf16 floor (input elements moved by one ulp: relative error of "
+        f"the last logits) {floor}; gate max({SERVE_TOL}, 2 x floor) = {gate}")
+    log(f"  planted fault (block {fault}, local window {RG_FAULT_WINDOW}): "
+        f"per block {fault_block} (must exceed {SERVE_TOL}), full depth "
+        f"{fault_full} (must exceed {gate})")
+    failed = []
+    for name, err in errs.items():
+        limit = MECH_TOL if name.endswith("fp32") else gate
+        if not err <= limit:
+            failed.append(f"{name}: relative error {err} > {limit}")
+    for i, err in enumerate(per_block):
+        if not err <= SERVE_TOL:
+            failed.append(f"block {i} ({blocks[i][2]}): relative error "
+                          f"{err} > {SERVE_TOL}")
+    if not fault_block > SERVE_TOL:
+        failed.append(f"the planted fault passed the per-block check: "
+                      f"{fault_block} <= {SERVE_TOL}")
+    if not fault_full > gate:
+        failed.append(f"the planted fault passed the full-depth gate: "
+                      f"{fault_full} <= {gate}")
+    if failed:
+        raise AssertionError(f"{RG_ARCH} checks failed: " + "; ".join(failed))
+
+    fns = {"prefill": prefill, "decode_step": lambda: dec(cfg, cache, cur)}
+    return fns, {"per_prefill": once, "per_decode_step": in_decode, **errs,
+                 "per_block_bf16": per_block, "floor_bf16": floor,
+                 "gate_bf16": gate, "fault_block": fault,
+                 "fault_per_block": fault_block, "fault_full_depth": fault_full}
+
+
+def breakdown(p: dict) -> dict:
+    """A profile's device time split into K8, K9, the GEMMs and the rest."""
+    by = p["device_ms_per_round"]
+    k8 = sum(ms for k, ms in by.items() if "flash_fwd" in k)
+    k9 = sum(ms for k, ms in by.items()
+             if "rescan_kernel" in k or "chunk_summary_kernel" in k)
+    gemm = sum(ms for k, ms in by.items()
+               if any(w in k.lower() for w in ("gemm", "nvjet", "cutlass",
+                                               "xmma")))
+    busy = p["busy_ms_per_round"] or float("nan")
+    rest = busy - k8 - k9 - gemm
+    log(f"  {p['case']}: K8 {k8:.3f} ms ({100 * k8 / busy:.1f} %), K9 "
+        f"{k9:.3f} ms ({100 * k9 / busy:.1f} %), GEMMs {gemm:.3f} ms "
+        f"({100 * gemm / busy:.1f} %), the rest {rest:.3f} ms "
+        f"({100 * rest / busy:.1f} %) of {busy:.3f} ms busy")
+    return {"k8_ms": k8, "k9_ms": k9, "gemm_ms": gemm, "rest_ms": rest}
+
+
 def _tensors(tree, path=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -1234,6 +1547,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.ragged_gather import kernel, ops
+    from repro_torch.kernels.rg_lru import kernel as rglru_kernel
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1243,14 +1557,15 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:   # one nvcc per source, together
+    with ThreadPoolExecutor(5) as pool:   # one nvcc per source, together
         for lib in [pool.submit(kernel.library),
                     pool.submit(kernel.reduce_library),
                     pool.submit(kernel.pack_library),
-                    pool.submit(flash_kernel.library)]:
+                    pool.submit(flash_kernel.library),
+                    pool.submit(rglru_kernel.library)]:
             lib.result()
     log(f"kernel build + load s: {time.perf_counter() - t0:.2f}")
-    for lib in ("slab", "slab_reduce", "pack", "flash"):
+    for lib in ("slab", "slab_reduce", "pack", "flash", "rglru"):
         for line in _build.BUILD_LOG.get(lib, "").splitlines():
             if ("registers" in line or "spill" in line
                     or "entry function" in line):
@@ -1335,20 +1650,32 @@ def main() -> int:
     prof = [_profiled(f"yi-6b {name}", {name: fn}, reps=2)
             for name, fn in fns.items()]
     for p in prof:
-        by = p["device_ms_per_round"]
-        k8 = sum(ms for k, ms in by.items() if "flash_fwd" in k)
-        gemm = sum(ms for k, ms in by.items()
-                   if any(w in k.lower() for w in ("gemm", "nvjet", "cutlass",
-                                                   "xmma")))
-        busy = p["busy_ms_per_round"] or float("nan")
-        log(f"  {p['case']}: K8 {k8:.3f} ms ({100 * k8 / busy:.1f} %), "
-            f"GEMMs {gemm:.3f} ms ({100 * gemm / busy:.1f} %) of "
-            f"{busy:.3f} ms busy")
-        p["k8_ms"], p["gemm_ms"] = k8, gemm
+        p.update(breakdown(p))
     log(json.dumps({"profile": prof}))
     del fns, ctx
     torch.cuda.empty_cache()
     log(f"  phase 7 s: {time.perf_counter() - t0:.1f}")
+
+    log("== phase 8: serving path (recurrentgemma-2b, full width and depth, "
+        "bf16, RG-LRU scan on K9, local attention on K8)")
+    t0 = time.perf_counter()
+    ctx = serve_setup(dev, RG_ARCH, RG_PROMPT)
+    cases = rglru_kernel_phase(dev, ctx, record)
+    log(json.dumps({"rglru_kernels": cases}))
+    log(f"  phase 8a s: {time.perf_counter() - t0:.1f}")
+    serving = main_path_launches("recurrentgemma-2b serving path",
+                                 ("flash_attention", "rglru_scan"),
+                                 lambda: serve_main(dev, ctx))
+    fns, checks = rg_checks(dev, ctx)
+    log(json.dumps({"serve_path": {**serving, **checks}}))
+    prof = [_profiled(f"{RG_ARCH} {name}", {name: fn}, reps=2)
+            for name, fn in fns.items()]
+    for p in prof:
+        p.update(breakdown(p))
+    log(json.dumps({"profile": prof}))
+    del fns, ctx
+    torch.cuda.empty_cache()
+    log(f"  phase 8 s: {time.perf_counter() - t0:.1f}")
     for name, n in launches.items():
         record[name]["launches"] = n
 

@@ -11,6 +11,7 @@ _MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "yi-6b": "yi_6b",
     "granite-3-2b": "granite_3_2b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 ARCH_IDS = tuple(_MODULES)

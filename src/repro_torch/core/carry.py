@@ -15,8 +15,9 @@ The models carry weights and caches: :func:`params_from_numpy` takes the
 JAX package's MoE parameter tree as numpy arrays (``jax.tree.map(
 np.asarray, init_moe(...))``) to the port's tensors, and
 :func:`model_params_from_numpy` / :func:`cache_from_numpy` do the same for
-a whole transformer's weights and decode caches, so the two packages can
-be held against each other on the same weights.
+a whole transformer's weights and decode caches (attention's ``kv`` and
+the RG-LRU blocks' ``rec`` subtrees alike, each leaf in its own dtype), so
+the two packages can be held against each other on the same weights.
 """
 from __future__ import annotations
 

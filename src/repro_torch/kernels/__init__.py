@@ -10,7 +10,9 @@ version:
                   ragged_gather, K7 ragged_scatter) in
                   ``ragged_gather/csrc/pack.cu``;
   flash_attention — blocked online-softmax attention (K8), CUDA C++ in
-                  ``flash_attention/csrc/flash.cu``.
+                  ``flash_attention/csrc/flash.cu``;
+  rg_lru        — the RG-LRU linear recurrence as a chunked scan (K9),
+                  CUDA C++ in ``rg_lru/csrc/rglru.cu``.
 
 ``backend`` holds the one switch between the kernels and their plain
 versions and the launch counts of every wrapper.
@@ -21,3 +23,4 @@ from .ragged_gather.ops import (LAUNCHES, pack_blocks,  # noqa: F401
                                 reset_launches, slab_extract, slab_merge,
                                 slab_merge_add, slab_step, slab_step_reduce,
                                 unpack_blocks)
+from .rg_lru import rglru_scan  # noqa: F401

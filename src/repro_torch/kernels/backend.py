@@ -1,6 +1,6 @@
 """The one backend switch and launch count of every kernel wrapper of the
 port (the data plane's K1–K7 in ``ragged_gather.ops``, attention's K8 in
-``flash_attention.ops``).
+``flash_attention.ops``, the RG-LRU scan's K9 in ``rg_lru.ops``).
 
 A tensor on the CPU goes to the kernel's plain PyTorch version; a CUDA
 tensor launches the hand-written kernel or raises.  There is no fallback
@@ -16,7 +16,7 @@ import torch
 
 LAUNCHES = {"slab_extract": 0, "slab_merge": 0, "slab_step": 0,
             "slab_merge_add": 0, "slab_step_reduce": 0, "ragged_gather": 0,
-            "ragged_scatter": 0, "flash_attention": 0}
+            "ragged_scatter": 0, "flash_attention": 0, "rglru_scan": 0}
 
 # None = the kernel exactly when the tensor is on CUDA; True = the kernel,
 # and a CPU tensor is an error; False = the plain version on any device.

@@ -66,6 +66,7 @@ struct Params {
   int causal;
   int window;  // <= 0: no window
   float scale;
+  int q_blocks;  // q blocks a (batch, head); set by the launcher
 };
 
 __device__ __forceinline__ bool visible(const Params& p, int i, int j) {
@@ -138,8 +139,10 @@ __global__ void __launch_bounds__(kThreads)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H, hk = h / p.group;
-  const int q0 = blockIdx.x * BM, q1 = min(q0 + BM, p.T);
+  const int qb = (int)(blockIdx.x % p.q_blocks);
+  const int bh = (int)(blockIdx.x / p.q_blocks), b = bh / p.H, h = bh % p.H,
+            hk = h / p.group;
+  const int q0 = qb * BM, q1 = min(q0 + BM, p.T);
   const __nv_bfloat16* q = reinterpret_cast<const __nv_bfloat16*>(p.q) +
                            b * p.q_sb + h * p.q_sh;
   const __nv_bfloat16* k = reinterpret_cast<const __nv_bfloat16*>(p.k) +
@@ -308,8 +311,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
   float* Ps = Vs + BN * HD;
 
   const int tid = threadIdx.x;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H, hk = h / p.group;
-  const int q0 = blockIdx.x * BM, q1 = min(q0 + BM, p.T);
+  const int qb = (int)(blockIdx.x % p.q_blocks);
+  const int bh = (int)(blockIdx.x / p.q_blocks), b = bh / p.H, h = bh % p.H,
+            hk = h / p.group;
+  const int q0 = qb * BM, q1 = min(q0 + BM, p.T);
   const float* q = reinterpret_cast<const float*>(p.q) + b * p.q_sb +
                    h * p.q_sh;
   const float* k = reinterpret_cast<const float*>(p.k) + b * p.k_sb +
@@ -407,12 +412,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
 }
 
 template <typename Kernel>
-int run(Kernel kernel, int smem, int q_blocks, int bh, const Params& p,
+int run(Kernel kernel, int smem, int bm, int bh, Params p,
         cudaStream_t stream) {
+  // One block per (batch * head, q block), flattened onto grid x (up to
+  // 2^31 - 1 blocks): grid y and z stop at 65535, and B * H alone passes
+  // that at long batches of short sequences.
+  p.q_blocks = (p.T + bm - 1) / bm;
+  const long long blocks = (long long)p.q_blocks * bh;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(q_blocks, bh, 1), kThreads, smem, stream>>>(p);
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -420,12 +431,10 @@ template <int HD>
 int launch_hd(int dtype, int bh, const Params& p, cudaStream_t stream) {
   if (dtype == 1) {
     using Tile = Bf16Tile<HD>;
-    return run(flash_fwd_bf16<HD>, Tile::kSmem,
-               (p.T + Tile::BM - 1) / Tile::BM, bh, p, stream);
+    return run(flash_fwd_bf16<HD>, Tile::kSmem, Tile::BM, bh, p, stream);
   }
   using Tile = F32Tile<HD>;
-  return run(flash_fwd_f32<HD>, Tile::kSmem, (p.T + Tile::BM - 1) / Tile::BM,
-             bh, p, stream);
+  return run(flash_fwd_f32<HD>, Tile::kSmem, Tile::BM, bh, p, stream);
 }
 
 }  // namespace
@@ -443,7 +452,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            float scale, void* stream) {
   Params p{q,    k,    v,    o,    H,    H / Hkv, T,    S,    q_sb,
            q_sh, q_st, k_sb, k_sh, k_st, v_sb,    v_sh, v_st, o_sb,
-           o_sh, o_st, causal, window, scale};
+           o_sh, o_st, causal, window, scale, 0};
   cudaStream_t st = (cudaStream_t)stream;
   const int bh = B * H;
   switch (hd) {

@@ -88,8 +88,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q.device}, {k.device}, {v.device}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    if B * H > 65535 or max(T, S) >= 2**31 - 128:
-        raise ValueError(f"B*H={B * H} > 65535 or a length past int32")
+    if max(T, S) >= 2**31 - 128:
+        raise ValueError(f"T={T} or S={S} is past int32")
     out = torch.empty_like(q)
     if not out.numel():
         return out, False

@@ -1,8 +1,10 @@
 """Batched serving, the port of ``repro.launch.serve``: left-padded
-prompts, one prefill per batch (attention on K8), then greedy decode.
+prompts, one prefill per batch (attention on K8, the RG-LRU scan on K9),
+then greedy decode.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
-        --reduced --device cpu --requests 8 --prompt-len 24 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-2b --reduced --device cpu --requests 8 \\
+        --prompt-len 24 --gen 16
 
 Differences from the reference: the loop is
 :func:`serve_requests`, which returns the generated tokens and the
@@ -123,7 +125,7 @@ def serve_requests(params: dict, cfg, queue: list, batch: int, gen: int,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="yi-6b")
+    ap.add_argument("--arch", default="recurrentgemma-2b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)

@@ -12,8 +12,9 @@ device.
 Modes: ``train`` (no cache), ``prefill`` (full sequence, fills caches),
 ``decode`` (one token against caches).  Block kinds ``dense``, ``moe``
 (the ported MoE layer, its gathers on K6) and ``local`` run here, their
-prefill attention on K8; ``rglru`` is ROADMAP item 9b, ``mlstm``,
-``slstm`` and ``cross`` item 9c.
+prefill attention on K8, and ``rglru`` (the RG-LRU block, its train and
+prefill scan on K9); ``mlstm``, ``slstm`` and ``cross`` are ROADMAP item
+9c.
 """
 from __future__ import annotations
 
@@ -23,13 +24,13 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..core.mesh import resolve_device
 from . import attention as attn
+from . import recurrent as rec
 from .layers import (embed, init_embedding, init_mlp, init_rmsnorm, mlp,
                      rmsnorm, unembed)
 from .moe import init_moe, moe_apply
 
-_ATTN_KINDS = ("dense", "moe", "local")
-_UNPORTED = {"rglru": "ROADMAP item 9b (recurrentgemma's RG-LRU block on K9)",
-             "mlstm": "ROADMAP item 9c (the xLSTM blocks)",
+_KINDS = ("dense", "moe", "local", "rglru")
+_UNPORTED = {"mlstm": "ROADMAP item 9c (the xLSTM blocks)",
              "slstm": "ROADMAP item 9c (the xLSTM blocks)",
              "cross": "ROADMAP item 9c (cross-attention of the VLM)"}
 
@@ -38,7 +39,7 @@ def _check_kind(kind: str) -> None:
     if kind in _UNPORTED:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet: "
                                   f"{_UNPORTED[kind]}")
-    if kind not in _ATTN_KINDS:
+    if kind not in _KINDS:
         raise ValueError(kind)
 
 
@@ -55,10 +56,13 @@ def _init_block(kind: str, cfg: ArchConfig, generator: torch.Generator,
                 device) -> dict:
     _check_kind(kind)
     dt, d = _dtype(cfg), cfg.d_model
-    p = {"norm1": init_rmsnorm(d, dt, device),
-         "attn": attn.init_attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                                     dt, generator, device),
-         "norm2": init_rmsnorm(d, dt, device)}
+    p = {"norm1": init_rmsnorm(d, dt, device)}
+    if kind == "rglru":
+        p["rec"] = rec.init_rglru(d, dt, generator, device)
+    else:
+        p["attn"] = attn.init_attention(d, cfg.n_heads, cfg.n_kv_heads,
+                                        cfg.hd, dt, generator, device)
+    p["norm2"] = init_rmsnorm(d, dt, device)
     if kind == "moe":
         p["ffn"] = init_moe(d, cfg.moe, dt, generator, device)
     else:
@@ -108,6 +112,15 @@ def _apply_block(p: dict, kind: str, cfg: ArchConfig, x: torch.Tensor, *,
     aux = None
     h = rmsnorm(p["norm1"], x)
     new_cache = cache
+    if kind == "rglru":
+        # prefill starts from the zero state, as the reference's does
+        r, st = rec.rglru_block(p["rec"], h,
+                                cache["rec"] if mode == "decode" else None)
+        if mode != "train":
+            new_cache = dict(cache, rec=st)
+        x = x + r
+        return x + mlp(p["ffn"], rmsnorm(p["norm2"], x), cfg.act), \
+            new_cache, aux
     window = cfg.local_window if kind == "local" else cfg.window
     kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
               head_dim=cfg.hd, rope_theta=cfg.rope_theta, window=window)
@@ -198,6 +211,9 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor | None = None,
 def _block_cache(kind: str, cfg: ArchConfig, batch: int, seq_len: int,
                  device) -> dict:
     _check_kind(kind)
+    if kind == "rglru":
+        return {"rec": rec.rglru_init_state(batch, cfg.d_model, _dtype(cfg),
+                                            device)}
     if kind == "local":
         S = min(seq_len, cfg.local_window or seq_len)
     else:
@@ -234,8 +250,8 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict,
                 token: torch.Tensor | None = None,
                 embeds: torch.Tensor | None = None):
     """One decode step.  token ``(B, 1)`` int (or embeds ``(B, 1, D)``).
-    Returns ``(logits (B, 1, V), new_cache)``; the caches are updated in
-    place."""
+    Returns ``(logits (B, 1, V), new_cache)``; the attention caches are
+    updated in place, the recurrent states replaced."""
     x = embed(params["embed"], token) if cfg.embed_inputs else embeds
     x, _, new_cache = _run_layers(params, cfg, x, cache, "decode")
     return unembed(params["embed"], rmsnorm(params["final_norm"], x)), \

@@ -1,4 +1,4 @@
-"""K1–K8 on the card against their plain PyTorch versions.
+"""K1–K9 on the card against their plain PyTorch versions.
 
 Needs a CUDA device (marker ``gpu``); without one every test here skips.
 This file imports no JAX, so it runs on the GPU machine as it is:
@@ -63,7 +63,8 @@ def test_cuda_kernels_match_plain(cuda_device, dname):
     assert ops.LAUNCHES == {"slab_extract": 1, "slab_merge": 1,
                             "slab_step": 1, "slab_merge_add": 0,
                             "slab_step_reduce": 0, "ragged_gather": 0,
-                            "ragged_scatter": 0, "flash_attention": 0}
+                            "ragged_scatter": 0, "flash_attention": 0,
+                            "rglru_scan": 0}
 
 
 def _send_windows(start, rows_in, rows_out):
@@ -322,6 +323,116 @@ def test_cuda_reduced_yi_forward_launches_k8_once_a_layer(cuda_device):
     ops.reset_launches()
     model.decode(cache, toks[:, :1])
     assert ops.LAUNCHES["flash_attention"] == 0
+    try:
+        rt.use_kernel_dataplane(False)
+        want, _ = model(toks)
+    finally:
+        rt.use_kernel_dataplane(None)
+    torch.testing.assert_close(logits[:, -1], want[:, -1], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_takes_more_than_65535_heads(cuda_device):
+    """B * H = 65536 (one query row each): K8 puts batch * head and the q
+    blocks on one grid axis, so it runs what the reference and the plain
+    version compute, where grid y would stop at 65535."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = (torch.randn((65536, 1, 1, 16), generator=g,
+                           device=cuda_device).to(torch.bfloat16)
+               for _ in range(3))
+    ops.reset_launches()
+    got = fops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    torch.testing.assert_close(got.float(),
+                               fref.attention_ref(q, k, v).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+RGLRU_CASES = [
+    # B, T, D, random h0 (else 0)
+    (4, 2100, 2560, False),     # recurrentgemma-2b's prefill, h0 = 0
+    (4, 2100, 2560, True),
+    (3, 1000, 2558, True),      # D % 4 != 0: the scalar path
+    (4, 1, 2560, True),         # T = 1
+    (1, 64, 8, True),           # one full chunk
+    (2, 65, 12, True),          # a chunk and one step
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RGLRU_CASES,
+                         ids=["-".join(map(str, c)) for c in RGLRU_CASES])
+def test_cuda_rglru_scan_matches_plain(cuda_device, case):
+    """K9 on the card against its plain version on the same inputs, at the
+    reference's 1e-5 (the same fp32 multiply-adds; only each chunk's
+    carry-in is reassociated), one launch each."""
+    from repro_torch.kernels.rg_lru import ops as rops
+    from repro_torch.kernels.rg_lru import ref as rref
+
+    B, T, D, random_h0 = case
+    g = torch.Generator(device=cuda_device).manual_seed(B * T + D)
+    a = torch.rand((B, T, D), generator=g, device=cuda_device)
+    b = torch.randn((B, T, D), generator=g, device=cuda_device)
+    h0 = (torch.randn((B, D), generator=g, device=cuda_device) if random_h0
+          else torch.zeros((B, D), device=cuda_device))
+    ops.reset_launches()
+    h, h_last = rops.rglru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rglru_scan"] == 1
+    want, want_last = rref.rglru_scan_ref(a, b, h0)
+    torch.testing.assert_close(h, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(h_last, want_last, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_rglru_scan_misaligned_and_empty(cuda_device):
+    """Inputs that start 4 bytes past 16-byte alignment take the scalar
+    path; T = 0 launches nothing and returns h0."""
+    from repro_torch.kernels.rg_lru import ops as rops
+    from repro_torch.kernels.rg_lru import ref as rref
+
+    B, T, D = 2, 300, 64
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    buf = torch.rand((2 * B * T * D + 1,), generator=g, device=cuda_device)
+    a = buf[1:B * T * D + 1].view(B, T, D)
+    b = buf[B * T * D + 1:].view(B, T, D)
+    assert a.data_ptr() % 16 and a.is_contiguous()
+    h0 = torch.randn((B, D), generator=g, device=cuda_device)
+    got = rops.rglru_scan(a, b, h0)
+    want = rref.rglru_scan_ref(a, b, h0)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+    ops.reset_launches()
+    h, h_last = rops.rglru_scan(a[:, :0], b[:, :0], h0)
+    assert h.shape == (B, 0, D) and torch.equal(h_last, h0)
+    assert ops.LAUNCHES["rglru_scan"] == 0
+
+
+@pytest.mark.gpu
+def test_cuda_reduced_recurrentgemma_launches_k9_and_k8(cuda_device):
+    """A reduced recurrentgemma-2b on the card (6 layers: 4 RG-LRU, 2
+    local, window 16, prompts of 40): one prefill launches K9 once an
+    RG-LRU block and K8 once a local block, a decode step neither, and
+    the logits match the plain versions."""
+    import repro_torch as rt
+    from repro_torch.models.transformer import Transformer
+
+    cfg = rt.get_config("recurrentgemma-2b").reduced()
+    model = Transformer(cfg, seed=3)
+    toks = torch.arange(80, device=cuda_device).reshape(2, 40) % cfg.vocab
+    ops.reset_launches()
+    cache = model.init_cache(2, 44)
+    logits, _, cache = model(toks, cache=cache, logits_last_only=True)
+    assert ops.LAUNCHES["rglru_scan"] == 4
+    assert ops.LAUNCHES["flash_attention"] == 2
+    ops.reset_launches()
+    model.decode(cache, toks[:, :1])
+    assert ops.LAUNCHES["rglru_scan"] == ops.LAUNCHES["flash_attention"] == 0
     try:
         rt.use_kernel_dataplane(False)
         want, _ = model(toks)

@@ -55,6 +55,15 @@ model = Transformer(cfg, device="cpu")
 res = serve.serve_requests(model.params, cfg, [np.arange(5), np.arange(3)],
                            batch=2, gen=2, device="cpu")
 assert [len(t) for t in res["tokens"]] == [3, 3]
+from repro_torch.kernels import rglru_scan
+h, h_last = rglru_scan(torch.rand(2, 5, 3), torch.randn(2, 5, 3),
+                       torch.zeros(2, 3))
+assert h.shape == (2, 5, 3) and torch.equal(h[:, -1], h_last)
+cfg = rt.get_config("recurrentgemma-2b").reduced()
+model = Transformer(cfg, device="cpu")
+res = serve.serve_requests(model.params, cfg, [np.arange(20), np.arange(7)],
+                           batch=2, gen=2, device="cpu")
+assert [len(t) for t in res["tokens"]] == [3, 3]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
@@ -83,7 +92,7 @@ def test_no_source_imports_jax_or_repro():
     files = list(_port_files())
     assert len(files) > 10
     for sub in ("core", "kernels", "models", "configs", "train", "launch",
-                "flash_attention"):
+                "flash_attention", "rg_lru"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
     for path in files:
         with open(path) as fh:

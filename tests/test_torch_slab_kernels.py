@@ -149,7 +149,8 @@ def test_cpu_tensors_never_launch_kernels():
     assert ops.LAUNCHES == {"slab_extract": 0, "slab_merge": 0,
                             "slab_step": 0, "slab_merge_add": 0,
                             "slab_step_reduce": 0, "ragged_gather": 0,
-                            "ragged_scatter": 0, "flash_attention": 0}
+                            "ragged_scatter": 0, "flash_attention": 0,
+                            "rglru_scan": 0}
 
 
 def test_slab_ops_reject_oversized_slab():

@@ -4,9 +4,12 @@
 The JAX package makes the weights (``repro.models.init_params``) and
 ``core.carry.model_params_from_numpy`` carries them to the port; inputs
 come from numpy.  On CPU tensors the port's prefill attention runs K8's
-plain version.  ``forward`` (train), prefill and ``decode_step`` are held
-to the reference on the reduced yi-6b, granite-3-2b and mixtral-8x7b
-configs (fp32; Mixtral's window of 16 rolls the ring cache) at
+plain version, and its RG-LRU scan K9's.  ``forward`` (train), prefill
+and ``decode_step`` are held to the reference on the reduced yi-6b,
+granite-3-2b, mixtral-8x7b and recurrentgemma-2b configs (fp32; the
+window of 16 of Mixtral and of recurrentgemma's local blocks rolls the
+ring cache under prompts of 24 tokens), and on recurrentgemma-2b at 8
+layers (two periods and the tail of two RG-LRU blocks), at
 ``rtol=atol=1e-4`` on the logits: float32 products summed in another
 order through a few layers, on logits of order 1–10.  The caches are
 compared element for element at the same tolerance, and the greedy tokens
@@ -40,7 +43,7 @@ from repro_torch.models.transformer import (Transformer,  # noqa: E402
                                             init_params, layer_plan)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ["yi-6b", "granite-3-2b", "mixtral-8x7b"]
+ARCHS = ["yi-6b", "granite-3-2b", "mixtral-8x7b", "recurrentgemma-2b"]
 
 
 def _jax_params(cfg, seed: int = 0) -> dict:
@@ -74,8 +77,20 @@ def _close(got: torch.Tensor, want) -> None:
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_prefill_decode_match_jax(arch):
-    jcfg = jax_get_config(arch).reduced()
-    cfg = get_config(arch).reduced()
+    _forward_prefill_decode_match(jax_get_config(arch).reduced(),
+                                  get_config(arch).reduced())
+
+
+def test_recurrentgemma_with_its_tail_matches_jax():
+    """8 layers: two periods of (rglru, rglru, local) and a tail of two
+    rglru blocks, as the full config's 26 = 8 periods + 2."""
+    jcfg = jax_get_config("recurrentgemma-2b").reduced().with_(n_layers=8)
+    cfg = get_config("recurrentgemma-2b").reduced().with_(n_layers=8)
+    assert layer_plan(cfg) == ([], 2, ["rglru", "rglru"])
+    _forward_prefill_decode_match(jcfg, cfg)
+
+
+def _forward_prefill_decode_match(jcfg, cfg):
     jp = _jax_params(jcfg)
     params = model_params_from_numpy(jp, "cpu")
     rng = np.random.default_rng(1)
@@ -129,17 +144,19 @@ def _jax_serve(jp, jcfg, queue, batch, gen):
     return out
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "mixtral-8x7b",
+                                  "recurrentgemma-2b"])
 def test_serve_requests_matches_jax_loop(arch):
     """4 ragged requests in batches of 3 (the second batch holds one),
     left-padded, 6 greedy decode steps: the port's tokens equal the
-    reference loop's."""
+    reference loop's.  recurrentgemma's prompts are longer than its local
+    window of 16, so the ring wraps in prefill and in decode."""
     jcfg = jax_get_config(arch).reduced()
     cfg = get_config(arch).reduced()
     jp = _jax_params(jcfg, seed=2)
     rng = np.random.default_rng(3)
-    queue = [rng.integers(0, cfg.vocab, n).astype(np.int32)
-             for n in (9, 14, 5, 11)]
+    lens = (21, 26, 17, 23) if arch == "recurrentgemma-2b" else (9, 14, 5, 11)
+    queue = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
     res = serve.serve_requests(model_params_from_numpy(jp, "cpu"), cfg,
                                queue, batch=3, gen=6, device="cpu")
     want = _jax_serve(jp, jcfg, queue, 3, 6)
@@ -171,8 +188,7 @@ def test_pop_batch_and_route_step_match_jax():
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("kind,item", [("rglru", "item 9b"),
-                                       ("mlstm", "item 9c"),
+@pytest.mark.parametrize("kind,item", [("mlstm", "item 9c"),
                                        ("slstm", "item 9c"),
                                        ("cross", "item 9c")])
 def test_unported_kind_raises_and_names_its_roadmap_item(kind, item):
@@ -265,7 +281,8 @@ def test_layers_match_jax():
         rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "granite-3-2b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "granite-3-2b",
+                                  "recurrentgemma-2b"])
 def test_configs_match_jax(arch):
     want = dataclasses.asdict(jax_get_config(arch))
     got = dataclasses.asdict(get_config(arch))
