@@ -11,7 +11,8 @@ Needs one CUDA device and ``nvcc`` (the kernels are built from
 Phases, in order; any failure raises and the exit code is nonzero:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the
-   kernels' build time;
+   kernels' build time; ``ptxas``'s registers and spills of every kernel,
+   and K8's Hopper kernel (hd 64, 128, 256) must not spill;
 2. kernels vs plain: K1–K3 against their plain PyTorch versions on the
    card at the gatherv path's shapes (P=16, ``buf_rows`` of the
    ``spikes`` plan, F=1024 fp32, and F=2048 bf16), and K4–K5 at the
@@ -57,7 +58,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
    yi-6b's prefill (B=4, T=2048), Mixtral-8x7B's window (T=8192, window
    4096), an odd length (T=1000), non-causal (T=384), fp32 (hd 64, window
    128) and hd 256 (window 2048), each timed beside its bound and
-   ``scaled_dot_product_attention``; (b) ``serve_requests`` on 8 requests
+   ``scaled_dot_product_attention`` (achieved TFLOP/s and the kernel's
+   time over SDPA's on each line); (b) ``serve_requests`` on 8 requests
    of 1024–2048 prompt tokens in batches of 4, 32 greedy tokens each, K8
    required; one prefill launches K8 once a layer and a decode step never;
    finite logits; the prefill's last logits within 2e-2 (relative
@@ -116,6 +118,7 @@ P, B, F, SEED = 16, 2048, 1024, 0
 ROOTS, SEGMENTS = (0, 7, 15), (1, 4)
 KERNEL_REPS, PATH_REPS = 20, 5
 L2_FLUSH_BYTES = 256 << 20   # five times the H100's 50 MB L2 (cold_ms)
+HOST_WINDOW_CYCLES = 1_000_000   # cold_ms: ~0.5 ms of SM clock for the host
 ORACLE_F = 16          # width of the NumPy-oracle check of phase 5
 A2A_B = 128            # alltoallv: S[i][j] = block_sizes(name, P, A2A_B, i)[j]
 MOE_ARCH, MOE_B, MOE_S = "mixtral-8x7b", 4, 1024
@@ -192,9 +195,11 @@ def cold_ms(fn, reps: int) -> float:
     """Median device time of ``fn`` over ``reps`` runs, by CUDA events,
     after one warm-up run, with the L2 cache flushed before each run: a
     buffer five times the L2 is zeroed just before the first event, so
-    the inputs come from HBM, and the host enqueues ``fn`` while the card
-    still clears it (about 0.1 ms), so a kernel of a few microseconds is
-    timed without its wrapper's host cost."""
+    the inputs come from HBM.  The card then sleeps ``HOST_WINDOW_CYCLES``
+    (about 0.5 ms) before the first event, and the host enqueues ``fn``
+    meanwhile, so a kernel is timed without its wrapper's host cost (the
+    flush alone, about 0.08 ms, hid less than K8's wrapper took late in a
+    long run)."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     fn()
     times = []
@@ -202,12 +207,32 @@ def cold_ms(fn, reps: int) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         flush.zero_()
+        torch.cuda._sleep(HOST_WINDOW_CYCLES)
         a.record()
         fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def ptxas_report(build_log: str) -> dict:
+    """Registers and spills of each kernel in ``nvcc -Xptxas -v``'s
+    output, by (mangled) entry function."""
+    out: dict = {}
+    name = None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = {}
+        elif name and "bytes spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out[name].update(stack=nums[0], spill_stores=nums[1],
+                             spill_loads=nums[2])
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(line.split("Used")[1].split()[0])
+    return out
 
 
 def placed(start: np.ndarray, buf_rows: int, rows: int) -> np.ndarray:
@@ -1044,14 +1069,17 @@ def flash_case(dev, label, dtype, B, H, Hkv, T, S, hd, causal, window,
     compute_ms = flops / FLOPS_PER_S[dtype] * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(compute_ms, bytes_ms)
+    tflops = flops / ms / 1e9
     log(f"  {label:44s} flop={flops} bytes={nbytes} kernel_ms={ms:.4f} "
         f"bound_ms={bound_ms:.4f} ({100 * bound_ms / ms:.1f} %) "
-        f"plain_ms={plain_ms:.3f} sdpa_ms={lib_ms:.4f} max_abs_err={err}")
+        f"tflop_s={tflops:.1f} plain_ms={plain_ms:.3f} sdpa_ms={lib_ms:.4f} "
+        f"kernel/sdpa={ms / lib_ms:.3f} max_abs_err={err}")
     return {"case": label, "max_abs_err": err, "tolerance": tol, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if compute_ms >= bytes_ms else "bytes",
-            "library_ms": lib_ms, "flop": flops, "bytes": nbytes,
-            "visible_pairs_per_head": pairs}
+            "library_ms": lib_ms, "tflop_s": tflops,
+            "kernel_over_library": ms / lib_ms, "flop": flops,
+            "bytes": nbytes, "visible_pairs_per_head": pairs}
 
 
 def flash_kernel_phase(dev, record: dict) -> list[dict]:
@@ -1570,6 +1598,21 @@ def main() -> int:
             if ("registers" in line or "spill" in line
                     or "entry function" in line):
                 log(f"  ptxas ({lib}):", line.strip())
+    # K8's Hopper kernel (TMA, wgmma) at hd 64, 128, 256: no spills
+    wgmma = {k: v for k, v in ptxas_report(_build.BUILD_LOG["flash"]).items()
+             if "flash_fwd_bf16_wgmma" in k}
+    serialised = [line for line in _build.BUILD_LOG["flash"].splitlines()
+                  if "C7513" in line]
+    for k, v in sorted(wgmma.items()):
+        hd = k.split("flash_fwd_bf16_wgmmaILi")[1].split("E")[0]
+        log(f"  K8 flash_fwd_bf16_wgmma<{hd}>: {v.get('registers')} registers "
+            f"at entry, {v.get('spill_stores')} bytes spill stores, "
+            f"{v.get('spill_loads')} bytes spill loads, products serialised "
+            f"by ptxas: {'yes' if any(k in x for x in serialised) else 'no'}")
+    if len(wgmma) != 3 or any(v.get("spill_stores") or v.get("spill_loads")
+                              or v.get("stack") for v in wgmma.values()):
+        raise AssertionError(f"K8's wgmma kernels spill or are missing from "
+                             f"the build log: {wgmma}")
 
     log("== phase 2: kernels vs plain (bitwise)")
     spikes = rt.plan_gatherv(block_sizes("spikes", P, B, seed=SEED), 0)

@@ -22,7 +22,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-# name -> nvcc's output of the build (ptxas register and spill report)
+# name -> nvcc's output of the build (ptxas register and spill report),
+# kept beside the library so that a load of an earlier build has it too
 BUILD_LOG: dict[str, str] = {}
 
 
@@ -44,6 +45,7 @@ def load(name: str, sources: list[Path]) -> ctypes.CDLL:
     for src in sources:
         h.update(Path(src).read_bytes())
     so = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    log = so.with_suffix(".log")
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # build under a private name, then rename: concurrent builds
@@ -56,8 +58,11 @@ def load(name: str, sources: list[Path]) -> ctypes.CDLL:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
                                f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        BUILD_LOG[name] = res.stdout + res.stderr
+        tmp_log = Path(tmp).with_suffix(".log")
+        tmp_log.write_text(res.stdout + res.stderr)
+        os.replace(tmp_log, log)
         os.replace(tmp, so)
+    BUILD_LOG[name] = log.read_text() if log.exists() else ""
     lib = ctypes.CDLL(str(so))
     _LIBS[name] = lib
     return lib

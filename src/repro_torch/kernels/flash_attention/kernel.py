@@ -6,18 +6,24 @@ K8 is bound by its operations: ``4 * hd`` FLOPs for every visible
 (query, key) pair of every head, against a few bytes per pair of q, k, v
 and o; a prefill at T = 2048, hd = 128 in bf16 needs about three times
 longer on the tensor cores (989 TFLOP/s) than its bytes take over HBM
-(3.35 TB/s).  Its design does three things about that: the two products
-run on the tensor cores (bf16, fp32 accumulation); the loop over kv blocks
-visits only the blocks that the causal and window masks leave visible, so
-a causal prefill does half the products and a window of W keys does
-``T * W`` instead of ``T * T``; and each k/v tile is read from HBM once
-for 64 query rows.  Loads are synchronous and there is no wgmma yet.
+(3.35 TB/s).  The bf16 kernel at hd 64, 128 and 256 is built for Hopper
+to keep the tensor cores fed: one producer thread loads q once and each
+kv block's k and v tiles by TMA into two-stage rings with mbarriers; two
+consumer warpgroups of 64 query rows run both products on wgmma (p from
+registers, v read transposed from shared memory) and overlap block n's
+softmax with block n - 1's p v; only the kv blocks on the causal
+diagonal, the window's edge or past S are masked; the loop visits only
+the blocks that the masks leave visible; and the heaviest q blocks are
+launched first.  hd 16 and 32 (no configuration of the repository uses
+them) run the first, mma.sync design, and fp32 plain FMAs: a dispatch by
+shape, with no fallback between the kernels.
 
 The launcher takes q ``(B, H, T, hd)`` and k/v ``(B, Hkv, S, hd)`` with
 any strides whose last one is 1 and whose rows start on 16 bytes, so a
 ``(B, T, H, hd)`` tensor is passed as its transposed view with no copy;
-the output is allocated with q's strides.  The library is built by its
-own ``nvcc`` at first use.
+the output is allocated with q's strides.  The C launcher builds the TMA
+tensor maps from those strides on every call.  The library is built by
+its own ``nvcc`` at first use.
 """
 from __future__ import annotations
 

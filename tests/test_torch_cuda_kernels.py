@@ -270,6 +270,23 @@ FLASH_CASES = [
     ("bf16", 1, 4, 2, 100, 140, 32, False, 30),        # T != S, empty rows
     ("fp32", 2, 4, 2, 256, 256, 64, True, 128),
     ("fp32", 1, 4, 2, 77, 99, 16, True, None),          # odd T and S
+    # the Hopper kernel (hd 64, 128, 256; q blocks of 128 rows, kv blocks
+    # of 128 keys, 64 at hd 256): GQA groups 1, 4, 8 and 32
+    ("bf16", 2, 4, 4, 256, 256, 128, True, None),
+    ("bf16", 1, 8, 2, 1000, 1000, 64, True, None),     # T % 128 != 0
+    ("bf16", 1, 8, 1, 1000, 1000, 128, True, None),
+    ("bf16", 1, 32, 1, 333, 333, 256, True, None),
+    ("bf16", 1, 32, 1, 129, 129, 64, True, None),
+    ("bf16", 2, 4, 2, 77, 1, 128, False, None),        # one key
+    ("bf16", 1, 4, 1, 1, 1000, 256, False, None),      # one query row
+    ("bf16", 1, 4, 2, 200, 333, 128, False, None),     # T != S
+    ("bf16", 1, 4, 4, 128, 128, 256, False, None),
+    ("bf16", 1, 8, 2, 517, 517, 128, True, 45),        # window < kv block
+    ("bf16", 2, 10, 1, 600, 600, 256, True, 37),
+    ("bf16", 1, 8, 8, 700, 700, 64, True, 200),
+    ("bf16", 1, 4, 2, 300, 100, 128, True, 50),        # rows >= 149 see
+    ("bf16", 1, 4, 2, 300, 100, 64, True, 50),         # no key
+    ("bf16", 1, 4, 1, 300, 100, 256, True, 50),
 ]
 
 
@@ -297,6 +314,10 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case):
     want = fref.attention_ref(q, k, v, causal=causal, window=window)
     tol = 2e-5 if dname == "fp32" else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # a row that sees no key is exactly 0, as in the reference
+    seen = fref.visible_mask(T, S, causal=causal, window=window,
+                             device=cuda_device).any(-1)
+    assert torch.equal(got[:, :, ~seen], torch.zeros_like(got[:, :, ~seen]))
     # the same call on the model's (B, T, H, hd) layout, as strided views
     qt, kt = q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous()
     vt = v.transpose(1, 2).contiguous()
@@ -333,15 +354,18 @@ def test_cuda_reduced_yi_forward_launches_k8_once_a_layer(cuda_device):
 
 
 @pytest.mark.gpu
-def test_cuda_flash_attention_takes_more_than_65535_heads(cuda_device):
+@pytest.mark.parametrize("hd", [16, 64])
+def test_cuda_flash_attention_takes_more_than_65535_heads(cuda_device, hd):
     """B * H = 65536 (one query row each): K8 puts batch * head and the q
     blocks on one grid axis, so it runs what the reference and the plain
-    version compute, where grid y would stop at 65535."""
+    version compute, where grid y would stop at 65535.  hd 16 runs the
+    mma.sync kernel, hd 64 the Hopper one (its tensor maps are 4-d over
+    (hd, T, H, B))."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
 
     g = torch.Generator(device=cuda_device).manual_seed(5)
-    q, k, v = (torch.randn((65536, 1, 1, 16), generator=g,
+    q, k, v = (torch.randn((65536, 1, 1, hd), generator=g,
                            device=cuda_device).to(torch.bfloat16)
                for _ in range(3))
     ops.reset_launches()
