@@ -11,8 +11,9 @@ Needs one CUDA device and ``nvcc`` (the kernels are built from
 Phases, in order; any failure raises and the exit code is nonzero:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the
-   kernels' build time; ``ptxas``'s registers and spills of every kernel,
-   and K8's Hopper kernel (hd 64, 128, 256) must not spill;
+   kernels' build time; ``ptxas``'s registers and spills of every kernel;
+   K8's Hopper kernel (hd 64, 128, 256) and K1's and K6's bulk-copy
+   kernels must not spill;
 2. kernels vs plain: K1–K3 against their plain PyTorch versions on the
    card at the gatherv path's shapes (P=16, ``buf_rows`` of the
    ``spikes`` plan, F=1024 fp32, and F=2048 bf16), and K4–K5 at the
@@ -21,14 +22,16 @@ Phases, in order; any failure raises and the exit code is nonzero:
    and from below), bitwise (tolerance 0: K1–K3 move bytes, K4–K5 add
    once per element in the working dtype exactly as the plain versions
    do), each timed beside its bound and, where one PyTorch call computes
-   the same function, that call;
+   the same function, that call (kernel, plain and library in turns over
+   ``TURN_ROUNDS`` rounds; K1 with its % of the bound, the rounds' range
+   and K1 / ``index_select``);
 3. the gatherv path: TUW gatherv and scatterv on ``LocalMesh(16)``, all
    six distributions of the paper at b=2048 rows of 4 KiB per rank,
    roots {0, 7, 15}, segments {1, 4}, bitwise against ``np.concatenate``
    and the input blocks; ``gatherv_shard`` / ``scatterv_shard`` timed on
    device tensors; K1–K3 must have been launched;
 4. where the time goes: ``torch.profiler`` over gatherv+scatterv pairs
-   and over reduce_scatterv;
+   (K1's share of the busy time) and over reduce_scatterv;
 5. the reduction and composed path on ``LocalMesh(16)``, the six
    distributions at b=2048, F=1024 fp32, segments {1, 4}:
    ``run_reduce_scatterv`` / ``run_allreducev`` bitwise against the same
@@ -42,7 +45,9 @@ Phases, in order; any failure raises and the exit code is nonzero:
    bf16 experts, fp32 router; random weights from the seed) on a batch
    of 4 × 1024 tokens: (a) K6/K7 bitwise against their plain versions at
    the layer's dispatch, combine and unpack shapes (bf16 D=4096) and at
-   fp32 F=1024 and F=7, timed beside their bound and the library call;
+   fp32 F=1024 and F=7, timed beside their bound and the library call in
+   turns (each case's % of its bound, the rounds' range and kernel /
+   library);
    (b) ``moe_apply`` through the kernels bitwise against the same call on
    the plain versions, and within 2e-2 (relative Frobenius) of an fp32
    recomputation of 64 tokens from the layer's routing tables; (c) the
@@ -117,6 +122,7 @@ ADD_OPS_PER_S = 67e12
 P, B, F, SEED = 16, 2048, 1024, 0
 ROOTS, SEGMENTS = (0, 7, 15), (1, 4)
 KERNEL_REPS, PATH_REPS = 20, 5
+TURN_ROUNDS = 5        # phases 2 and 6a: rounds of kernel, plain, library
 L2_FLUSH_BYTES = 256 << 20   # five times the H100's 50 MB L2 (cold_ms)
 HOST_WINDOW_CYCLES = 1_000_000   # cold_ms: ~0.5 ms of SM clock for the host
 ORACLE_F = 16          # width of the NumPy-oracle check of phase 5
@@ -214,6 +220,17 @@ def cold_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def in_turns(fns: dict, timer, reps: int) -> dict:
+    """Each thunk of ``fns`` timed by ``timer(fn, reps)`` once a round, in
+    turns, for ``TURN_ROUNDS`` rounds: ``{name: (median, lowest,
+    highest)}`` over the rounds' readings."""
+    times = {k: [] for k in fns}
+    for _ in range(TURN_ROUNDS):
+        for k, fn in fns.items():
+            times[k].append(timer(fn, reps))
+    return {k: (float(np.median(t)), min(t), max(t)) for k, t in times.items()}
 
 
 def ptxas_report(build_log: str) -> dict:
@@ -324,9 +341,11 @@ def kernel_phase(dev, plan, dtype, width, record: dict | None) -> None:
                                                 rows_out), None),
     }
     for name, (kfn, pfn, lfn) in fns.items():
-        ms = median_ms(kfn, KERNEL_REPS)
-        plain_ms = median_ms(pfn, KERNEL_REPS)
-        lib_ms = median_ms(lfn, KERNEL_REPS) if lfn else None
+        t = in_turns({"kernel": kfn, "plain": pfn,
+                      **({"library": lfn} if lfn else {})}, median_ms,
+                     KERNEL_REPS)
+        ms, plain_ms = t["kernel"][0], t["plain"][0]
+        lib_ms = t["library"][0] if lfn else None
         bound_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
         log(f"  {name:13s} {str(dtype):15s} F={width} rows={rows} "
             f"rows_in={rows_in} rows_out={rows_out} buf_rows={buf_rows} "
@@ -334,6 +353,12 @@ def kernel_phase(dev, plan, dtype, width, record: dict | None) -> None:
             f"plain_ms={plain_ms:.4f} library_ms="
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} "
             f"max_abs_err={errs[name]}")
+        if name == "slab_extract":
+            log(f"  K1 {dtype} F={width}: {ms:.4f} ms "
+                f"[{t['kernel'][1]:.4f}, {t['kernel'][2]:.4f}], "
+                f"{100 * bound_ms / ms:.1f} % of the bound; index_select "
+                f"{lib_ms:.4f} ms [{t['library'][1]:.4f}, "
+                f"{t['library'][2]:.4f}]; K1 / index_select {ms / lib_ms:.3f}")
         if record is not None:
             record[name] = {"name": name, "route": "cuda",
                             "source": SOURCES[name],
@@ -579,6 +604,10 @@ def profile_phase(dev, name: str, root: int, segments: int) -> dict:
         f"steps={len(plan.steps)}",
         {"gatherv": lambda: rt.gatherv_shard(x, plan, mesh, tables),
          "scatterv": lambda: rt.scatterv_shard(buf_root, plan, mesh, tables)})
+    k1 = sum(ms for k, ms in out["device_ms_per_round"].items()
+             if "slab_extract_kernel" in k)
+    out["k1_share_of_busy"] = k1 / out["busy_ms_per_round"] if k1 else None
+    log(f"  K1 {k1:.3f} ms of {out['busy_ms_per_round']:.3f} ms busy")
     del x, buf_root
     torch.cuda.empty_cache()
     return out
@@ -743,22 +772,26 @@ def moe_setup(dev):
 
 def _pack_case(label: str, kfn, pfn, lfn, nbytes: int) -> dict:
     """One K6/K7 case: bitwise against the plain version, then timed
-    (``cold_ms``) beside its bound (bytes over the HBM rate) and the
-    library call."""
+    (``cold_ms``, kernel, plain and library in turns) beside its bound
+    (bytes over the HBM rate) and the library call."""
     err = bitwise_err(kfn(), pfn())
     if err != 0.0:
         raise AssertionError(f"{label} differs from its plain version: "
                              f"max abs err {err}")
-    ms = cold_ms(kfn, KERNEL_REPS)
-    plain_ms = cold_ms(pfn, KERNEL_REPS)
-    lib_ms = cold_ms(lfn, KERNEL_REPS)
+    t = in_turns({"kernel": kfn, "plain": pfn, "library": lfn}, cold_ms,
+                 KERNEL_REPS)
+    (ms, lo, hi), plain_ms, (lib_ms, lib_lo, lib_hi) = (
+        t["kernel"], t["plain"][0], t["library"])
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"  {label:38s} bytes={nbytes} kernel_ms={ms:.4f} "
-        f"bound_ms={bound_ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={lib_ms:.4f} max_abs_err={err}")
+        f"[{lo:.4f}, {hi:.4f}] bound_ms={bound_ms:.4f} "
+        f"({100 * bound_ms / ms:.1f} % of it) plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms:.4f} [{lib_lo:.4f}, {lib_hi:.4f}] "
+        f"kernel/library={ms / lib_ms:.3f} max_abs_err={err}")
     return {"case": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
-            "bytes": nbytes}
+            "bytes": nbytes, "ms_range": [lo, hi],
+            "library_ms_range": [lib_lo, lib_hi]}
 
 
 def gather_case(label: str, x: torch.Tensor, idx: torch.Tensor) -> dict:
@@ -1613,6 +1646,20 @@ def main() -> int:
                               or v.get("stack") for v in wgmma.values()):
         raise AssertionError(f"K8's wgmma kernels spill or are missing from "
                              f"the build log: {wgmma}")
+    # K1's and K6's bulk-copy kernels (K6: whole rows a stage, and pieces
+    # of rows wider than a stage): present and no spills
+    bulk = {**{k: v for k, v in ptxas_report(_build.BUILD_LOG["slab"]).items()
+               if "slab_extract_kernel" in k},
+            **{k: v for k, v in ptxas_report(_build.BUILD_LOG["pack"]).items()
+               if "ragged_gather_bulk_kernel" in k}}
+    for k, v in sorted(bulk.items()):
+        log(f"  bulk copy {k}: {v.get('registers')} registers, "
+            f"{v.get('spill_stores')} bytes spill stores, "
+            f"{v.get('spill_loads')} bytes spill loads")
+    if len(bulk) != 3 or any(v.get("spill_stores") or v.get("spill_loads")
+                             for v in bulk.values()):
+        raise AssertionError(f"K1's or K6's bulk kernels spill or are missing "
+                             f"from the build log: {bulk}")
 
     log("== phase 2: kernels vs plain (bitwise)")
     spikes = rt.plan_gatherv(block_sizes("spikes", P, B, seed=SEED), 0)

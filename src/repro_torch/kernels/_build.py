@@ -3,8 +3,9 @@
 Each library is compiled by ``nvcc`` into a shared object with a plain C
 interface (no PyTorch headers, so a build takes seconds, not minutes)
 under ``build/kernels/`` at the root of the checkout.  The file name
-carries a hash of the sources and flags, so an edited source builds anew
-and an unchanged one is loaded from the previous build.  Importing this
+carries a hash of the sources, the headers (``*.cuh``) beside them and
+the flags, so an edited source or header builds anew and an unchanged
+one is loaded from the previous build.  Importing this
 module needs no ``nvcc``: :func:`load` runs it on the first CUDA call.
 """
 from __future__ import annotations
@@ -42,7 +43,9 @@ def load(name: str, sources: list[Path]) -> ctypes.CDLL:
     if lib is not None:
         return lib
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    headers = sorted({hdr for src in sources
+                      for hdr in Path(src).parent.glob("*.cuh")})
+    for src in (*sources, *headers):
         h.update(Path(src).read_bytes())
     so = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
     log = so.with_suffix(".log")

@@ -1,0 +1,110 @@
+// Hopper's 1-D bulk copy (cp.async.bulk, the TMA engine without a tensor
+// map), used by K1 (slab.cu) and K6 (pack.cu).
+//
+// A bulk load copies a contiguous run of bytes from device memory into
+// shared memory and reports the bytes on an mbarrier (complete_tx); a
+// bulk store copies a contiguous run of shared memory back to device
+// memory and is tracked by the issuing thread's bulk groups.  Both need
+// 16-byte aligned addresses and a size that is a multiple of 16.  No
+// register holds the data on its way.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace bulk {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return (uint32_t)__cvta_generic_to_shared(ptr);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the barriers' initialisation visible to the async proxy.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also announces the bytes the stage's loads will bring.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// bytes from device memory at src into shared memory at dst, completing
+// on bar.
+__device__ __forceinline__ void load(void* dst, const void* src,
+                                     uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// bytes of shared memory at src to device memory at dst, in the calling
+// thread's current bulk group.
+__device__ __forceinline__ void store(void* dst, const void* src,
+                                      uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+// As store, with the written lines marked evict-first in L2, so that an
+// output written once does not push out inputs that are read again.
+__device__ __forceinline__ void store_evict_first(void* dst, const void* src,
+                                                  uint32_t bytes) {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], "
+      "[%1], %2, %3;\n" ::"l"(dst),
+      "r"(smem_u32(src)), "r"(bytes), "l"(policy)
+      : "memory");
+}
+
+// Orders the bytes a barrier saw land before a bulk store's read of them,
+// as a proxy fence orders shared memory before a TMA store.
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// All but the newest N of the thread's store groups have read shared memory.
+template <int N>
+__device__ __forceinline__ void wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+}  // namespace bulk

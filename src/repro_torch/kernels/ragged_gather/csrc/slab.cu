@@ -3,33 +3,53 @@
 // Every buffer is a batch of P ranks: buf (P, buf_rows, row_bytes) and
 // slab (P, rows, row_bytes), each row raw bytes, so one kernel serves
 // fp32, bf16 and int32 alike.  Offsets come from int32 device tables, one
-// entry per rank; the CTAs of rank r (grid.y == r) read entry r.  A start
-// is placed as lax.dynamic_slice / dynamic_update_slice place it in the
-// reference: a negative start counts once from the end (start + buf_rows),
-// then it is clamped to [0, buf_rows - rows].  Valid counts are clamped to
-// [0, rows].
-//
-// Each thread copies 16 bytes (one uint4) per iteration of a grid-stride
-// loop, neighbouring threads on neighbouring addresses.  The launchers
+// entry per rank.  A start is placed as lax.dynamic_slice /
+// dynamic_update_slice place it in the reference: a negative start counts
+// once from the end (start + buf_rows), then it is clamped to [0, buf_rows
+// - rows].  Valid counts are clamped to [0, rows].  The launchers' callers
 // reject rows and pointers that are not 16-byte aligned.
+//
+// K1 copies, for each rank, one contiguous window of rows * row_bytes
+// bytes to one contiguous output: P memcpys.  It flattens them into one
+// list of kExtractChunk-byte chunks (the last chunk of a rank shorter) and
+// gives each chunk a CTA of one thread, which brings the chunk into
+// shared memory with Hopper's 1-D bulk copy (on an mbarrier) and sends it
+// back out with a bulk store (bulk.cuh); no byte passes through
+// registers.  A CTA holds 16 KB of shared memory, so 13 are resident an
+// SM, each with its chunk in flight, and the block scheduler starts the
+// next as soon as a store has read its chunk.  A persistent grid with a
+// ring of chunks a CTA, and register copies, measured slower on an H100
+// (PERF.md).
+//
+// K2 and K3: each thread copies 16 bytes (one uint4) per iteration of a
+// grid-stride loop, neighbouring threads on neighbouring addresses; the
+// CTAs of rank r (grid.y == r) read table entry r.
 //
 // Bound: the kernels do no arithmetic on the data, so each one is bound by
 // the bytes it moves over device memory (3.35 TB/s on an H100 SXM).  The
-// design answers that bound by touching only live rows (the Pallas kernels
-// copy the whole buffer per step) and with full-width coalesced 16-byte
-// accesses.  No TMA or wgmma yet: making them fast is later work.
+// designs answer that bound by touching only live rows (the Pallas kernels
+// copy the whole buffer per step), K1 with about 200 KB of loads in flight
+// an SM, K2-K3 with full-width coalesced 16-byte accesses.
 //
 // Each launcher returns cudaGetLastError() as an int (0 = launched).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-// CTAs across all ranks: enough to keep every SM busy (132 SMs x 8 resident
-// CTAs of 256 threads, two waves), the grid-stride loop covers the rest.
+// K2-K3's CTAs across all ranks: enough to keep every SM busy (132 SMs x 8
+// resident CTAs of 256 threads, two waves), the grid-stride loop covers
+// the rest.
 constexpr long long kMaxCtas = 2048;
+
+// K1's chunk.  8 to 32 KB measured the same on an H100 (PERF.md).
+constexpr int kExtractChunk = 16384;
+static_assert(kExtractChunk % 16 == 0 && kExtractChunk <= 32768,
+              "a chunk is whole 16-byte units in static shared memory");
 
 __device__ __forceinline__ long long clamp_ll(long long x, long long lo,
                                               long long hi) {
@@ -46,20 +66,32 @@ __device__ __forceinline__ long long place(int start, long long buf_rows,
 // K1. Replaces slab_extract_kernel (src/repro/kernels/ragged_gather/kernel.py).
 // out[r, i] = buf[r, place(start[r]) + i] for i < rows.
 // Bytes moved: P * rows * row_bytes read + the same written.
-__global__ void slab_extract_kernel(const uint4* __restrict__ buf,
-                                    uint4* __restrict__ out,
-                                    const int* __restrict__ start,
-                                    long long buf_rows, long long rows,
-                                    long long vpr) {
-  const long long r = blockIdx.y;
+
+// Chunk blockIdx.x of the flat list: rank c / per_rank, at byte
+// (c % per_rank) * kExtractChunk of the rank's window.
+__global__ void __launch_bounds__(1)
+    slab_extract_kernel(const uint8_t* __restrict__ buf,
+                        uint8_t* __restrict__ out,
+                        const int* __restrict__ start, long long per_rank,
+                        long long buf_rows, long long rows,
+                        long long row_bytes) {
+  __shared__ __align__(128) uint8_t chunk[kExtractChunk];
+  __shared__ uint64_t full;
+  const long long c = blockIdx.x, r = c / per_rank;
+  const long long window = rows * row_bytes;
+  const long long off = (c - r * per_rank) * kExtractChunk;
+  const uint32_t bytes =
+      (uint32_t)(window - off < kExtractChunk ? window - off : kExtractChunk);
   const long long s = place(start[r], buf_rows, rows);
-  const uint4* src = buf + (r * buf_rows + s) * vpr;
-  uint4* dst = out + r * rows * vpr;
-  const long long n = rows * vpr;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    dst[i] = src[i];
-  }
+  bulk::mbar_init(&full, 1);
+  bulk::mbar_fence_init();
+  bulk::mbar_expect_tx(&full, bytes);
+  bulk::load(chunk, buf + (r * buf_rows + s) * row_bytes + off, bytes, &full);
+  bulk::mbar_wait(&full, 0);
+  bulk::fence_async();
+  bulk::store(out + r * window + off, chunk, bytes);
+  bulk::commit();
+  bulk::wait_read<0>();
 }
 
 // K2. Replaces slab_merge_kernel (src/repro/kernels/ragged_gather/kernel.py).
@@ -137,10 +169,13 @@ extern "C" {
 int slab_extract_launch(const void* buf, void* out, const void* start, int P,
                         long long buf_rows, long long rows,
                         long long row_bytes, void* stream) {
-  const long long vpr = row_bytes / 16;
-  slab_extract_kernel<<<grid_for(rows * vpr, P), kThreads, 0,
+  const long long per_rank = (rows * row_bytes + kExtractChunk - 1) /
+                             kExtractChunk;
+  if (per_rank == 0) return 0;   // rows of 0 bytes: nothing to move
+  slab_extract_kernel<<<(unsigned)(per_rank * P), 1, 0,
                         (cudaStream_t)stream>>>(
-      (const uint4*)buf, (uint4*)out, (const int*)start, buf_rows, rows, vpr);
+      (const uint8_t*)buf, (uint8_t*)out, (const int*)start, per_rank,
+      buf_rows, rows, row_bytes);
   return (int)cudaGetLastError();
 }
 

@@ -4,11 +4,13 @@ kernels K6–K7 (``csrc/pack.cu``).
 
 Each function takes CUDA tensors with a leading rank axis, checks them,
 launches one kernel on PyTorch's current stream and raises if the launch
-was refused.  K1–K3 move raw 16-byte vectors, so any dtype whose row is
-a multiple of 16 bytes is accepted; K4–K5 add, and take fp32, bf16 and
-int32.  K6–K7 take single ``(rows, F)`` tensors of any dtype and any row
-width: they copy 16-byte units where the rows and pointers allow it and
-narrower units otherwise.  Outputs are allocated here (``torch.empty``;
+was refused.  K1–K3 move raw bytes in 16-byte units (K1 by Hopper's
+bulk copy), so any dtype whose row is a multiple of 16 bytes is
+accepted; K4–K5 add, and take fp32, bf16 and int32.  K6–K7 take single
+``(rows, F)`` tensors of any dtype and any row width: K6 copies rows of
+384 bytes and more with Hopper's bulk copy where the rows and pointers
+are 16-byte aligned, and both copy 16-byte units where the rows and
+pointers allow it and narrower units otherwise.  Outputs are allocated here (``torch.empty``;
 ``torch.zeros`` for K7, which writes only the rows it is given); the
 kernels allocate nothing and do not synchronise.  The three sources are
 three libraries, each built by its own ``nvcc`` at first use.

@@ -262,6 +262,111 @@ def test_cuda_moe_small(cuda_device, groups):
     assert int(aux["dropped"]) > 0
 
 
+# The narrowest row (bytes) that K6's bulk kernel takes (kBulkMinBytes in
+# csrc/pack.cu); narrower rows take its unit kernel.
+K6_BULK_MIN_BYTES = 384
+
+
+def _gather_cases():
+    """(id, N, M, F, dtype, index kind, x misaligned) of the K6 sweep; the
+    widths around the bulk kernel's threshold are added in the test."""
+    return [("bf16-8KB-M>>grid", 1025, 20000, 4096, torch.bfloat16, "mix",
+             False),
+            ("fp32-F1024", 4097, 10248, 1024, torch.float32, "mix", False),
+            ("fp32-16B", 300, 1000, 4, torch.float32, "mix", False),
+            ("fp32-16KB-split", 50, 300, 4096, torch.float32, "mix", False),
+            ("bf16-20KB-split", 40, 77, 10240, torch.bfloat16, "mix", False),
+            ("fp32-4KB-misaligned", 300, 1000, 1024, torch.float32, "mix",
+             True),
+            ("fp32-4KB-M1", 300, 1, 1024, torch.float32, "mix", False),
+            ("fp32-4KB-M=4k+3", 300, 4 * 97 + 3, 1024, torch.float32, "mix",
+             False),
+            ("bf16-8KB-all-sentinel", 100, 999, 4096, torch.bfloat16,
+             "sentinel", False),
+            ("fp32-4KB-out-of-range", 300, 1000, 1024, torch.float32,
+             "outside", False)]
+
+
+GATHER_IDS = [c[0] for c in _gather_cases()] + [
+    "threshold-16", "threshold", "threshold+16"]
+
+
+def _gather_index(rng, kind, n, m):
+    if kind == "sentinel":        # every slot empty: the zero row n - 1
+        return np.full(m, n - 1, dtype=np.int32)
+    if kind == "outside":         # below 0 and past the end only
+        return np.where(rng.random(m) < 0.5,
+                        rng.integers(-2**31, 0, size=m),
+                        rng.integers(n, 2**31 - 1, size=m)).astype(np.int32)
+    idx = rng.integers(-5, n + 5, size=m).astype(np.int32)
+    idx[rng.random(m) < 0.2] = n - 1   # repeats of the sentinel row
+    return idx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", GATHER_IDS)
+def test_cuda_ragged_gather_bulk_sweep(cuda_device, which):
+    """K6 across its two kernels, bitwise against its plain version: rows
+    at, and 16 bytes either side of, the bulk kernel's threshold; 8 KB
+    bf16 rows with M far above the grid; rows wider than a ring stage; an
+    ``x`` 8 but not 16 bytes aligned (the unit kernel); M = 1 and M not a
+    multiple of a stage's rows; all indices on the sentinel row; indices
+    only below 0 and past N."""
+    cases = {c[0]: c for c in _gather_cases()}
+    thr = K6_BULK_MIN_BYTES
+    for name, w in (("threshold-16", thr - 16), ("threshold", thr),
+                    ("threshold+16", thr + 16)):
+        cases[name] = (name, 300, 1000, w // 4, torch.float32, "mix", False)
+    _, n, m, f, tdt, kind, misaligned = cases[which]
+    rng = np.random.default_rng(n + m + f)
+    data = _data(rng, (n * f + 8,), torch.float32).to(tdt).to(cuda_device)
+    off = 8 // data.element_size() if misaligned else 0
+    x = data[off:off + n * f].view(n, f)
+    assert (x.data_ptr() % 16 != 0) == misaligned
+    x[n - 1] = 0
+    idx = torch.from_numpy(_gather_index(rng, kind, n, m)).to(cuda_device)
+    ops.reset_launches()
+    got = ops.ragged_gather(x, idx)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ragged_gather"] == 1
+    assert torch.equal(got, ref.ragged_gather_ref(x, idx))
+
+
+# K1's sweep: row bytes -> (buf_rows, rows counts).  Each list holds 1, 7,
+# a count whose window is not a whole number of 16 KB chunks (16 KB rows
+# make every window whole) and buf_rows.
+EXTRACT_ROWS = {16: (2000, (1, 7, 1500, 2000)),
+                4112: (40, (1, 7, 13, 40)),
+                16384: (48, (1, 7, 37, 48))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [1, 3, 16, 64])
+@pytest.mark.parametrize("row_bytes", sorted(EXTRACT_ROWS))
+@pytest.mark.parametrize("dname", sorted(DTYPES))
+def test_cuda_slab_extract_sweep(cuda_device, P, row_bytes, dname):
+    """K1 bitwise against its plain version over rank counts, row widths,
+    dtypes and window lengths, with starts in range, negative (counted
+    once from the end), past the end and far below 0."""
+    tdt = DTYPES[dname]
+    buf_rows, counts = EXTRACT_ROWS[row_bytes]
+    F = row_bytes // torch.tensor([], dtype=tdt).element_size()
+    rng = np.random.default_rng(P * row_bytes)
+    buf = _data(rng, (P, buf_rows, F), tdt).to(cuda_device)
+    ops.reset_launches()
+    for rows in counts:
+        mixed = rng.integers(-buf_rows, buf_rows + rows, size=P)
+        mixed[0] = -3
+        for start in (mixed, np.full(P, buf_rows + 7),
+                      np.full(P, -2 * buf_rows - 1)):
+            st = torch.from_numpy(start.astype(np.int32)).to(cuda_device)
+            got = ops.slab_extract(buf, st, rows)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref.slab_extract_ref(buf, st, rows)), (
+                rows, start)
+    assert ops.LAUNCHES["slab_extract"] == 3 * len(counts)
+
+
 FLASH_CASES = [
     # dtype, B, H, Hkv, T, S, hd, causal, window
     ("bf16", 2, 4, 2, 256, 256, 64, True, None),
