@@ -12,8 +12,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the
    kernels' build time; ``ptxas``'s registers and spills of every kernel;
-   K8's Hopper kernel (hd 64, 128, 256) and K1's and K6's bulk-copy
-   kernels must not spill;
+   K8's Hopper kernel (hd 64, 128, 256), K1's and K6's bulk-copy kernels
+   and K9's single pass must not spill;
 2. kernels vs plain: K1–K3 against their plain PyTorch versions on the
    card at the gatherv path's shapes (P=16, ``buf_rows`` of the
    ``spikes`` plan, F=1024 fp32, and F=2048 bf16), and K4–K5 at the
@@ -23,8 +23,9 @@ Phases, in order; any failure raises and the exit code is nonzero:
    once per element in the working dtype exactly as the plain versions
    do), each timed beside its bound and, where one PyTorch call computes
    the same function, that call (kernel, plain and library in turns over
-   ``TURN_ROUNDS`` rounds; K1 with its % of the bound, the rounds' range
-   and K1 / ``index_select``);
+   ``TURN_ROUNDS`` rounds; K1 and K2 with their % of the bound, the
+   rounds' range and K1 / ``index_select``, K2 / ``index_copy_``; K4
+   against ``index_add_``);
 3. the gatherv path: TUW gatherv and scatterv on ``LocalMesh(16)``, all
    six distributions of the paper at b=2048 rows of 4 KiB per rank,
    roots {0, 7, 15}, segments {1, 4}, bitwise against ``np.concatenate``
@@ -80,7 +81,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
    MQA kv=1, hd 256, d_ff 7680, vocab 256000, window 2048; bf16, random
    weights from the seed): (a) K9 against its plain version (1e-5) at the
    prefill's shape with h0 = 0 and with a random h0, an odd shape (B 3, T
-   1000, D 2558) and T = 1, each timed beside its bound; (b)
+   1000, D 2558, the two-pass path) and T = 1, each with the path it takes
+   and timed beside its bound; (b)
    ``serve_requests`` on 8 requests of 2049–3072 prompt tokens (past the
    window, so the ring wraps in prefill and in decode) in batches of 4, 32
    greedy tokens each, K8 and K9 required, with times, tokens/s, peak
@@ -324,18 +326,32 @@ def kernel_phase(dev, plan, dtype, width, record: dict | None) -> None:
         * row_bytes,
     }
 
-    # timing: merge and step are idempotent on a working copy
+    # timing: merge and step are idempotent on a working copy; the library
+    # call for K2 is one index_copy_ of the valid slab rows into the
+    # flattened working copy, index and rows prepared outside
     work = buf.clone()
     flat = buf.view(-1, width)
+    first = torch.from_numpy(placed(start, buf_rows, rows)).to(dev)
     rowidx = (torch.arange(P, device=dev)[:, None] * buf_rows
-              + torch.from_numpy(placed(start, buf_rows, rows)).to(dev)[:, None]
-              + torch.arange(rows, device=dev)).reshape(-1)
+              + first[:, None] + torch.arange(rows, device=dev)).reshape(-1)
+    merge_idx = torch.cat([rowidx[r * rows: r * rows + int(nv[r])]
+                           for r in range(P)])
+    merge_src = torch.cat([slab[r, : int(nv[r])] for r in range(P)])
+    work_flat = work.view(-1, width)
+    lib_merge = buf.clone()
+    lib_merge.view(-1, width).index_copy_(0, merge_idx, merge_src)
+    if not torch.equal(lib_merge, ops.slab_merge(buf.clone(), slab, st, va)):
+        raise AssertionError("index_copy_ of the valid slab rows does not "
+                             "compute K2's function")
+    del lib_merge
     fns = {
         "slab_extract": (lambda: ops.slab_extract(buf, st, rows),
                          lambda: ref.slab_extract_ref(buf, st, rows),
                          lambda: flat.index_select(0, rowidx)),
         "slab_merge": (lambda: ops.slab_merge(work, slab, st, va),
-                       lambda: ref.slab_merge_ref(work, slab, st, va), None),
+                       lambda: ref.slab_merge_ref(work, slab, st, va),
+                       lambda: work_flat.index_copy_(0, merge_idx,
+                                                     merge_src)),
         "slab_step": (lambda: ops.slab_step(work, got, st, va, se, rows_out),
                       lambda: ref.slab_step_ref(work, got, st, va, se,
                                                 rows_out), None),
@@ -353,12 +369,14 @@ def kernel_phase(dev, plan, dtype, width, record: dict | None) -> None:
             f"plain_ms={plain_ms:.4f} library_ms="
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} "
             f"max_abs_err={errs[name]}")
-        if name == "slab_extract":
-            log(f"  K1 {dtype} F={width}: {ms:.4f} ms "
+        if lfn:
+            kn, call = {"slab_extract": ("K1", "index_select"),
+                        "slab_merge": ("K2", "index_copy_")}[name]
+            log(f"  {kn} {dtype} F={width}: {ms:.4f} ms "
                 f"[{t['kernel'][1]:.4f}, {t['kernel'][2]:.4f}], "
-                f"{100 * bound_ms / ms:.1f} % of the bound; index_select "
+                f"{100 * bound_ms / ms:.1f} % of the bound; {call} "
                 f"{lib_ms:.4f} ms [{t['library'][1]:.4f}, "
-                f"{t['library'][2]:.4f}]; K1 / index_select {ms / lib_ms:.3f}")
+                f"{t['library'][2]:.4f}]; {kn} / {call} {ms / lib_ms:.3f}")
         if record is not None:
             record[name] = {"name": name, "route": "cuda",
                             "source": SOURCES[name],
@@ -366,7 +384,7 @@ def kernel_phase(dev, plan, dtype, width, record: dict | None) -> None:
                             "max_abs_err": errs[name], "ms": ms,
                             "plain_ms": plain_ms, "bound_ms": bound_ms,
                             "bound_by": "bytes", "library_ms": lib_ms}
-    del buf, slab, work, got
+    del buf, slab, work, got, merge_src
     torch.cuda.empty_cache()
 
 
@@ -454,9 +472,11 @@ def reduce_kernel_phase(dev, plan, dtype, width, record: dict | None) -> None:
             None),
     }
     for name, (kfn, pfn, lfn) in fns.items():
-        ms = median_ms(kfn, KERNEL_REPS)
-        plain_ms = median_ms(pfn, KERNEL_REPS)
-        lib_ms = median_ms(lfn, KERNEL_REPS) if lfn else None
+        t = in_turns({"kernel": kfn, "plain": pfn,
+                      **({"library": lfn} if lfn else {})}, median_ms,
+                     KERNEL_REPS)
+        ms, plain_ms = t["kernel"][0], t["plain"][0]
+        lib_ms = t["library"][0] if lfn else None
         bytes_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
         ops_ms = nadds[name] / ADD_OPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
@@ -465,7 +485,8 @@ def reduce_kernel_phase(dev, plan, dtype, width, record: dict | None) -> None:
             f"bytes={nbytes[name]} adds={nadds[name]} kernel_ms={ms:.4f} "
             f"bound_ms={bound_ms:.4f} plain_ms={plain_ms:.4f} library_ms="
             f"{'none' if lib_ms is None else f'{lib_ms:.4f}'} "
-            f"max_abs_err={errs[name]}")
+            f"max_abs_err={errs[name]} kernel_range=[{t['kernel'][1]:.4f}, "
+            f"{t['kernel'][2]:.4f}]")
         if record is not None:
             record[name] = {"name": name, "route": "cuda",
                             "source": SOURCES[name],
@@ -1323,8 +1344,10 @@ def serve_checks(dev, ctx: dict) -> tuple[dict, dict]:
 
 def rglru_case(dev, label, B, T, D, random_h0, plain_reps: int = 3) -> dict:
     """One K9 case: against its plain version at 1e-5, then timed
-    (``cold_ms``) beside its bound.  No single PyTorch call computes this
-    recurrence, so there is no library time."""
+    (``cold_ms``) beside its bound, with the path its shape takes (the
+    single pass or the two-pass scan).  No single PyTorch call computes
+    this recurrence, so there is no library time."""
+    from repro_torch.kernels.rg_lru import kernel as rkernel
     from repro_torch.kernels.rg_lru import ops as rops
     from repro_torch.kernels.rg_lru import ref as rref
 
@@ -1333,6 +1356,7 @@ def rglru_case(dev, label, B, T, D, random_h0, plain_reps: int = 3) -> dict:
     b = torch.randn((B, T, D), generator=g, device=dev)
     h0 = (torch.randn((B, D), generator=g, device=dev) if random_h0
           else torch.zeros((B, D), device=dev))
+    path = "single pass" if rkernel.single_pass(a, b, h0) else "two pass"
     got = rops.rglru_scan(a, b, h0)
     want = rref.rglru_scan_ref(a, b, h0)
     err = max(float((x - y).abs().max()) for x, y in zip(got, want))
@@ -1350,10 +1374,11 @@ def rglru_case(dev, label, B, T, D, random_h0, plain_reps: int = 3) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     compute_ms = flops / FLOPS_PER_S[torch.float32] * 1e3
     bound_ms = max(bytes_ms, compute_ms)
-    log(f"  {label:44s} bytes={nbytes} kernel_ms={ms:.4f} "
-        f"bound_ms={bound_ms:.4f} ({100 * bound_ms / ms:.1f} %) "
-        f"plain_ms={plain_ms:.3f} max_abs_err={err}")
-    return {"case": label, "max_abs_err": err, "tolerance": RGLRU_TOL,
+    log(f"  {label:44s} path={path} bytes={nbytes} kernel_ms={ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({100 * bound_ms / ms:.1f} % of the "
+        f"bound) plain_ms={plain_ms:.3f} max_abs_err={err}")
+    return {"case": label, "path": path, "max_abs_err": err,
+            "tolerance": RGLRU_TOL,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= compute_ms else "operations",
             "library_ms": None, "bytes": nbytes, "flop": flops}
@@ -1573,8 +1598,9 @@ def breakdown(p: dict) -> dict:
     """A profile's device time split into K8, K9, the GEMMs and the rest."""
     by = p["device_ms_per_round"]
     k8 = sum(ms for k, ms in by.items() if "flash_fwd" in k)
-    k9 = sum(ms for k, ms in by.items()
-             if "rescan_kernel" in k or "chunk_summary_kernel" in k)
+    k9 = sum(ms for k, ms in by.items() if any(
+        w in k for w in ("chained_scan_kernel", "rescan_kernel",
+                         "chunk_summary_kernel")))
     gemm = sum(ms for k, ms in by.items()
                if any(w in k.lower() for w in ("gemm", "nvjet", "cutlass",
                                                "xmma")))
@@ -1660,6 +1686,18 @@ def main() -> int:
                              for v in bulk.values()):
         raise AssertionError(f"K1's or K6's bulk kernels spill or are missing "
                              f"from the build log: {bulk}")
+    # K9's single pass (bulk copies, decoupled look-back): present and no
+    # spills
+    chained = {k: v for k, v in ptxas_report(_build.BUILD_LOG["rglru"]).items()
+               if "chained_scan_kernel" in k}
+    for k, v in chained.items():
+        log(f"  K9 single pass {k}: {v.get('registers')} registers, "
+            f"{v.get('spill_stores')} bytes spill stores, "
+            f"{v.get('spill_loads')} bytes spill loads")
+    if len(chained) != 1 or any(v.get("spill_stores") or v.get("spill_loads")
+                                for v in chained.values()):
+        raise AssertionError(f"K9's single pass spills or is missing from "
+                             f"the build log: {chained}")
 
     log("== phase 2: kernels vs plain (bitwise)")
     spikes = rt.plan_gatherv(block_sizes("spikes", P, B, seed=SEED), 0)

@@ -2,10 +2,12 @@
 
 Each library is compiled by ``nvcc`` into a shared object with a plain C
 interface (no PyTorch headers, so a build takes seconds, not minutes)
-under ``build/kernels/`` at the root of the checkout.  The file name
-carries a hash of the sources, the headers (``*.cuh``) beside them and
-the flags, so an edited source or header builds anew and an unchanged
-one is loaded from the previous build.  Importing this
+under ``build/kernels/`` at the root of the checkout.  Headers shared by
+several libraries live in ``kernels/csrc/`` (:data:`INCLUDE_DIR`, on
+every build's include path).  The file name carries a hash of the
+sources, the headers (``*.cuh``) beside them and in :data:`INCLUDE_DIR`,
+and the flags, so an edited source or header builds anew and an
+unchanged one is loaded from the previous build.  Importing this
 module needs no ``nvcc``: :func:`load` runs it on the first CUDA call.
 """
 from __future__ import annotations
@@ -19,6 +21,7 @@ import tempfile
 from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+INCLUDE_DIR = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,8 +46,9 @@ def load(name: str, sources: list[Path]) -> ctypes.CDLL:
     if lib is not None:
         return lib
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    headers = sorted({hdr for src in sources
-                      for hdr in Path(src).parent.glob("*.cuh")})
+    headers = sorted({hdr for d in (*(Path(s).parent for s in sources),
+                                    INCLUDE_DIR)
+                      for hdr in d.glob("*.cuh")})
     for src in (*sources, *headers):
         h.update(Path(src).read_bytes())
     so = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
@@ -55,7 +59,8 @@ def load(name: str, sources: list[Path]) -> ctypes.CDLL:
         # (one per rank) never load a half-written file
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", tmp,
+               *map(str, sources)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             os.unlink(tmp)

@@ -1,5 +1,8 @@
 // Hopper's 1-D bulk copy (cp.async.bulk, the TMA engine without a tensor
-// map), used by K1 (slab.cu) and K6 (pack.cu).
+// map), used by K1 (ragged_gather/csrc/slab.cu) and K6 (ragged_gather/
+// csrc/pack.cu); K9 (rg_lru/csrc/rglru.cu) waits on its mbarrier helpers.
+// It lives in kernels/csrc/, which _build.py puts on every build's include
+// path and hashes into every library's name.
 //
 // A bulk load copies a contiguous run of bytes from device memory into
 // shared memory and reports the bytes on an mbarrier (complete_tx); a
@@ -53,6 +56,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// Whether the phase of the given parity has completed, without waiting.
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
 }
 
 // bytes from device memory at src into shared memory at dst, completing

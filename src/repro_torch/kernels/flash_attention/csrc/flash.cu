@@ -78,6 +78,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tensor_map.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;  // kernel.py NEG_INF
@@ -1003,40 +1005,13 @@ int run(Kernel kernel, int smem, int bm, int bh, Params p,
   return (int)cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime, so that the
-// library links no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 // A bf16 (hd, rows, heads, batch) map with element strides (row, head,
 // batch), read and written in (64 columns, box_rows) boxes with the
 // 128-byte swizzle.  0 or kEncodeError + the CUresult.
 int encode(CUtensorMap* map, const void* ptr, int hd, int rows, int heads,
            int batch, long long s_row, long long s_head, long long s_batch,
            int box_rows) {
-  EncodeTiled fn = encoder();
+  tmap::EncodeTiled fn = tmap::encoder();
   if (fn == nullptr) return kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)rows,
                               (cuuint64_t)heads, (cuuint64_t)batch};

@@ -2,15 +2,17 @@
 which replaces ``rglru_scan_kernel`` (``src/repro/kernels/rg_lru/kernel.py:43``).
 
 K9 is bound by bytes: it reads a and b once and writes h once, 12 bytes
-an element, for two FLOPs.  One thread per (batch, channel) is too few
-threads to keep HBM busy at the model's prefill (B = 4, D = 2560), so K9
-cuts T into chunks of :data:`CHUNK` steps, each a thread of its own:
-a summary pass (each chunk's end state from 0 and its decay) and a rescan
-from each chunk's carry-in.  It reads a and b twice, 20 bytes an element
-in all.  Unlike the Pallas kernel it takes any B, T and D (no ``B % 8``,
-``D % 128`` or ``T % chunk``): 16-byte loads where ``D % 4 == 0`` and the
-pointers allow, one float otherwise.  The library is built by its own
-``nvcc`` at first use.
+an element, for two FLOPs.  Where :func:`single_pass` holds (``D % 4 ==
+0`` and a, b and h0 16-byte aligned) it runs one pass that reads a and b
+once: tiles of 256 steps by 32 channels, each brought into shared memory
+by a TMA box, chained across T by a decoupled look-back through a
+workspace whose flags the launcher zeroes before every launch.  Other
+shapes (TMA needs 16-byte strides and addresses) take the two-pass scan:
+a summary pass over chunks of :func:`chunk_len` steps, then a rescan from
+each chunk's carry-in, reading a and b twice.  The choice is by shape and
+alignment; a launch that fails raises.  Unlike the Pallas kernel it takes
+any B, T and D (no ``B % 8``, ``D % 128`` or ``T % chunk``).  The library
+is built by its own ``nvcc`` at first use.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import torch
 from .. import _build
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "rglru.cu"]
-CHUNK = 64          # steps a thread scans; grid y holds at most 65535 chunks
+CHUNK = 64          # two-pass: steps a thread scans; grid y holds <= 65535
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 
@@ -35,15 +37,28 @@ def library() -> ctypes.CDLL:
         lib.rglru_scan_launch.argtypes = ([_P] * 6 + [_I64] * 3
                                           + [ctypes.c_int, _P])
         lib.rglru_scan_launch.restype = ctypes.c_int
+        lib.rglru_chained_scan_launch.argtypes = [_P] * 6 + [_I64] * 3 + [_P]
+        lib.rglru_chained_scan_launch.restype = ctypes.c_int
+        lib.rglru_chained_workspace_bytes.argtypes = [_I64] * 3
+        lib.rglru_chained_workspace_bytes.restype = _I64
         lib.rglru_error_string.argtypes = [ctypes.c_int]
         lib.rglru_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
 
+def single_pass(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> bool:
+    """Whether K9 takes its single pass for these inputs: its TMA tensor
+    maps need rows of whole 16-byte units (``D % 4 == 0``) and 16-byte
+    aligned a and b, and it asks the same of h0 (h and h_last are
+    allocated aligned)."""
+    return a.shape[-1] % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                        for t in (a, b, h0))
+
+
 def chunk_len(T: int) -> int:
-    """The chunk length K9 uses for ``T`` steps: :data:`CHUNK`, longer
-    where ``T`` would need more than 65535 chunks."""
+    """The chunk length of K9's two-pass scan for ``T`` steps:
+    :data:`CHUNK`, longer where ``T`` would need more than 65535 chunks."""
     return max(CHUNK, math.ceil(T / 65535))
 
 
@@ -70,15 +85,21 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
     if not (B and T and D):
         return h, h0.clone(), False
     h_last = torch.empty_like(h0)
-    chunk = chunk_len(T)
-    n_chunks = math.ceil(T / chunk)
-    scratch = torch.empty((2, B, n_chunks - 1, D), dtype=torch.float32,
-                          device=a.device)
     lib = library()
-    code = lib.rglru_scan_launch(
-        a.data_ptr(), b.data_ptr(), h0.data_ptr(), h.data_ptr(),
-        h_last.data_ptr(), scratch.data_ptr(), B, T, D, chunk,
-        torch.cuda.current_stream(a.device).cuda_stream)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    if single_pass(a, b, h0):
+        work = torch.empty(lib.rglru_chained_workspace_bytes(B, T, D),
+                           dtype=torch.uint8, device=a.device)
+        code = lib.rglru_chained_scan_launch(
+            a.data_ptr(), b.data_ptr(), h0.data_ptr(), h.data_ptr(),
+            h_last.data_ptr(), work.data_ptr(), B, T, D, stream)
+    else:
+        chunk = chunk_len(T)
+        scratch = torch.empty((2, B, math.ceil(T / chunk) - 1, D),
+                              dtype=torch.float32, device=a.device)
+        code = lib.rglru_scan_launch(
+            a.data_ptr(), b.data_ptr(), h0.data_ptr(), h.data_ptr(),
+            h_last.data_ptr(), scratch.data_ptr(), B, T, D, chunk, stream)
     if code != 0:
         raise RuntimeError(f"rglru_scan launch failed: CUDA error {code} "
                            f"({lib.rglru_error_string(code).decode()})")

@@ -483,13 +483,23 @@ def test_cuda_flash_attention_takes_more_than_65535_heads(cuda_device, hd):
 
 
 RGLRU_CASES = [
-    # B, T, D, random h0 (else 0)
+    # B, T, D, random h0 (else 0); D % 4 == 0 takes the single pass (tiles
+    # of 256 steps by 32 channels), D % 4 != 0 the two-pass scan
     (4, 2100, 2560, False),     # recurrentgemma-2b's prefill, h0 = 0
     (4, 2100, 2560, True),
-    (3, 1000, 2558, True),      # D % 4 != 0: the scalar path
+    (3, 1000, 2558, True),      # D % 4 != 0: the two-pass path
     (4, 1, 2560, True),         # T = 1
     (1, 64, 8, True),           # one full chunk
     (2, 65, 12, True),          # a chunk and one step
+    (2, 63, 256, True),         # the two-pass scan's chunk edges
+    (2, 64, 256, True),
+    (2, 65, 256, True),
+    (2, 255, 256, True),        # one step short of a tile
+    (2, 256, 256, True),        # one whole tile a channel group
+    (2, 257, 256, True),        # a tile and one step
+    (4, 2920, 2560, True),      # recurrentgemma-2b's longest prefill
+    (2, 300, 2564, True),       # a last channel group of 4 channels
+    (1, 80000, 512, True),      # 313 tiles chained in each channel group
 ]
 
 
@@ -499,7 +509,9 @@ RGLRU_CASES = [
 def test_cuda_rglru_scan_matches_plain(cuda_device, case):
     """K9 on the card against its plain version on the same inputs, at the
     reference's 1e-5 (the same fp32 multiply-adds; only each chunk's
-    carry-in is reassociated), one launch each."""
+    carry-in is reassociated), one launch each, on the path its shape
+    selects."""
+    from repro_torch.kernels.rg_lru import kernel as rkernel
     from repro_torch.kernels.rg_lru import ops as rops
     from repro_torch.kernels.rg_lru import ref as rref
 
@@ -509,6 +521,7 @@ def test_cuda_rglru_scan_matches_plain(cuda_device, case):
     b = torch.randn((B, T, D), generator=g, device=cuda_device)
     h0 = (torch.randn((B, D), generator=g, device=cuda_device) if random_h0
           else torch.zeros((B, D), device=cuda_device))
+    assert rkernel.single_pass(a, b, h0) == (D % 4 == 0)
     ops.reset_launches()
     h, h_last = rops.rglru_scan(a, b, h0)
     torch.cuda.synchronize()
@@ -519,9 +532,60 @@ def test_cuda_rglru_scan_matches_plain(cuda_device, case):
 
 
 @pytest.mark.gpu
+def test_cuda_rglru_scan_exact_zero_and_one_decays(cuda_device):
+    """a exactly 0 (the state forgotten) and exactly 1 (kept whole) on
+    some steps, across tile edges and in the first and last tiles, on the
+    single pass and the two-pass scan."""
+    from repro_torch.kernels.rg_lru import kernel as rkernel
+    from repro_torch.kernels.rg_lru import ops as rops
+    from repro_torch.kernels.rg_lru import ref as rref
+
+    for B, T, D in ((3, 700, 384), (2, 300, 258)):
+        g = torch.Generator(device=cuda_device).manual_seed(T + D)
+        a = torch.rand((B, T, D), generator=g, device=cuda_device)
+        pick = torch.rand((B, T, D), generator=g, device=cuda_device)
+        a = torch.where(pick < 0.05, 0.0, torch.where(pick > 0.9, 1.0, a))
+        a[:, 63:66] = 1.0
+        a[:, 254:258] = 1.0
+        a[:, T - 1] = 0.0
+        b = torch.randn((B, T, D), generator=g, device=cuda_device)
+        h0 = torch.randn((B, D), generator=g, device=cuda_device)
+        assert rkernel.single_pass(a, b, h0) == (D % 4 == 0)
+        got = rops.rglru_scan(a, b, h0)
+        want = rref.rglru_scan_ref(a, b, h0)
+        for x, y in zip(got, want):
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_rglru_scan_twice_reuses_its_workspace(cuda_device):
+    """Two calls in a row on different inputs of one shape: the allocator
+    hands the second call the first one's workspace, flags and all, and
+    both match the plain version (the launcher zeroes the flags)."""
+    from repro_torch.kernels.rg_lru import kernel as rkernel
+    from repro_torch.kernels.rg_lru import ops as rops
+    from repro_torch.kernels.rg_lru import ref as rref
+
+    B, T, D = 2, 1000, 640
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    inputs = [(torch.rand((B, T, D), generator=g, device=cuda_device),
+               torch.randn((B, T, D), generator=g, device=cuda_device),
+               torch.randn((B, D), generator=g, device=cuda_device))
+              for _ in range(2)]
+    assert all(rkernel.single_pass(*x) for x in inputs)
+    ops.reset_launches()
+    got = [rops.rglru_scan(*x) for x in inputs]
+    for x, out in zip(inputs, got):
+        for y, z in zip(out, rref.rglru_scan_ref(*x)):
+            torch.testing.assert_close(y, z, rtol=1e-5, atol=1e-5)
+    assert ops.LAUNCHES["rglru_scan"] == 2
+
+
+@pytest.mark.gpu
 def test_cuda_rglru_scan_misaligned_and_empty(cuda_device):
-    """Inputs that start 4 bytes past 16-byte alignment take the scalar
+    """Inputs that start 4 bytes past 16-byte alignment take the two-pass
     path; T = 0 launches nothing and returns h0."""
+    from repro_torch.kernels.rg_lru import kernel as rkernel
     from repro_torch.kernels.rg_lru import ops as rops
     from repro_torch.kernels.rg_lru import ref as rref
 
@@ -532,6 +596,7 @@ def test_cuda_rglru_scan_misaligned_and_empty(cuda_device):
     b = buf[B * T * D + 1:].view(B, T, D)
     assert a.data_ptr() % 16 and a.is_contiguous()
     h0 = torch.randn((B, D), generator=g, device=cuda_device)
+    assert not rkernel.single_pass(a, b, h0)
     got = rops.rglru_scan(a, b, h0)
     want = rref.rglru_scan_ref(a, b, h0)
     for x, y in zip(got, want):

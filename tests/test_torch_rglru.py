@@ -118,3 +118,26 @@ def test_rglru_scan_cuda_checks_its_inputs_before_building():
 def test_chunk_len_keeps_the_chunks_under_the_grid_limit(T, want):
     assert kernel.chunk_len(T) == want
     assert -(-T // kernel.chunk_len(T)) <= 65535
+
+
+@pytest.mark.parametrize("D,offset,want", [(2560, 0, True), (4, 0, True),
+                                           (2564, 0, True), (2558, 0, False),
+                                           (6, 0, False), (2560, 1, False),
+                                           (2560, 2, False), (2560, 4, True)])
+def test_single_pass_is_chosen_by_shape_and_alignment(D, offset, want):
+    """K9 takes its single pass where ``D % 4 == 0`` and a, b and h0 start
+    on 16-byte boundaries, else the two-pass scan: views ``offset`` floats
+    into a buffer (CPU tensors; the choice reads only shapes and
+    addresses)."""
+    B, T = 2, 5
+    buf = torch.zeros(2 * B * T * D + B * D + 3 * offset + 16)
+    base = (-buf.data_ptr() // 4) % 4         # buf[base] is 16-byte aligned
+    n = B * T * D
+    a = buf[base + offset: base + offset + n].view(B, T, D)
+    b = buf[base + n + 2 * offset: base + 2 * n + 2 * offset].view(B, T, D)
+    h0 = torch.zeros(B, D)
+    assert h0.data_ptr() % 16 == 0
+    assert kernel.single_pass(a, b, h0) is want
+    # h0 alone off its boundary takes the two-pass scan too
+    h0_off = buf[base + 1: base + 1 + B * D].view(B, D)
+    assert not kernel.single_pass(a, b, h0_off)
