@@ -97,10 +97,30 @@ Phases, in order; any failure raises and the exit code is nonzero:
    of the prefill's last logits when 1, 10 and 1000 embedded input
    elements move by one bf16 ulp, measured in the same run; and a planted
    fault (one local block at half its window, set through the config) must
-   fail the per-block check and pass the gate.
+   fail the per-block check and pass the gate;
+9. the paper's trees on the card: on ``LocalMesh(16)``, the six
+   distributions at b=2048 rows of 4 KiB a rank, roots 0, 7 and the free
+   root of ``build_gather_tree``, the TUW, linear, DP-optimal
+   (``optimal_gather_tree`` at the paper's ``CostParams.infiniband_qdr()``,
+   beta scaled to a 4 KiB row), two-level (4 ranks a host) and 2-ported
+   trees go through ``plan_gatherv(tree=...)``: ``run_gatherv`` and
+   ``run_scatterv`` bitwise against ``np.concatenate`` and the input
+   blocks, ``gatherv_shard`` / ``scatterv_shard`` timed as in phase 3, each
+   line with its steps, exact and padded bytes and the port's
+   ``simulate_gather`` of the tree at the paper's cluster parameters (not
+   the card's); binomial, 3-nomial and graceful-degradation trees must be
+   refused by ``plan_gatherv`` exactly when an edge with data has
+   ``lo = -1`` (then priced by the model only) and run otherwise; G2
+   measured at root 0 (the TUW gatherv over an allreducev of one row plus
+   the gatherv of the max-padded problem, no gate); all with the port's
+   ``obs.trace`` on: one span per ``run_*`` call, ``span_times_by("op")``
+   covering them, the Chrome trace saved under ``build/`` and read back,
+   and each plan's bytes split over a 4 × 4 ``HostTopology`` summing to
+   the flat count; K1–K3 must have been launched.
 
 The line before the last is a JSON object with one entry per kernel
-(K1–K9); the last is ``{"ok": true, "device": {...}}``.
+(K1–K9), launches counted over phases 3, 5–9; the last is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -150,6 +170,9 @@ RG_CONSIST_T = 2100           # prefill past the window, then decode steps
 RG_FLOOR_ELEMENTS = (1, 10, 1000)   # embedded inputs moved by one bf16 ulp
 RG_FAULT_WINDOW = 1024        # the planted fault: one local block's window
 RGLRU_TOL = 1e-5              # K9 vs plain (the reference's Pallas tolerance)
+ZOO_ROOTS = (0, 7)            # phase 9, and the free root of build_gather_tree
+ZOO_QDR_ROW = 1024            # MPI_INT units in a 4 KiB row (the paper's beta)
+ZOO_HOSTS = (4, 4)            # hosts x ranks of the link-class split
 CSRC = "src/repro_torch/kernels/ragged_gather/csrc/"
 SOURCES = {"slab_extract": CSRC + "slab.cu", "slab_merge": CSRC + "slab.cu",
            "slab_step": CSRC + "slab.cu",
@@ -1594,6 +1617,187 @@ def rg_checks(dev, ctx: dict) -> tuple[dict, dict]:
                  "fault_per_block": fault_block, "fault_full_depth": fault_full}
 
 
+# ---------------------------------------------------------------- phase 9
+
+def zoo_trees(m: list, root: int, free: bool, row_params) -> dict:
+    """The trees of the paper's comparison for ``(m, root)``, by name: the
+    five that lower to the step plane, then the three whose edges may
+    carry non-contiguous ranges.  ``free``: TUW picks its own root (then
+    ``root`` is that root)."""
+    from repro_torch.core import baselines, extensions, opttrees
+    from repro_torch.core.treegather import build_gather_tree
+
+    return {"tuw": build_gather_tree(m, root=None if free else root),
+            "linear": baselines.linear_tree(m, root),
+            "dp_optimal": opttrees.optimal_gather_tree(
+                m, root, row_params.alpha, row_params.beta),
+            "two_level": baselines.two_level_tree(m, root, node_size=4),
+            "kported": extensions.build_kported_tree(m, 2, root=root),
+            "binomial": baselines.binomial_tree(m, root),
+            "3-nomial": baselines.knomial_tree(m, root, 3),
+            "graceful": extensions.graceful_degradation(
+                m, root, extensions.auto_threshold(m, row_params))}
+
+
+def zoo_path(dev) -> dict:
+    """Phase 9: the paper's tree comparison on ``LocalMesh(16)``, traced."""
+    import repro_torch as rt
+    from repro_torch.core.carry import plan_tensors
+    from repro_torch.core.costmodel import (CostParams, HostTopology,
+                                            simulate_gather)
+    from repro_torch.core.distributions import NAMES, block_sizes
+    from repro_torch.core.treegather import build_gather_tree
+    from repro_torch.obs import trace as obs_trace
+
+    qdr = CostParams.infiniband_qdr()
+    # the paper's cluster, beta scaled to one 4 KiB row: the model's price
+    # of a tree, not the card's (the card's alpha and beta are not fitted)
+    row_params = CostParams(qdr.alpha, qdr.beta * ZOO_QDR_ROW, qdr.time_unit,
+                            "row(4 KiB)")
+    topo = HostTopology(*ZOO_HOSTS)
+    row_bytes = F * 4
+    mesh = rt.LocalMesh(P, device=dev)
+    rows, refused, g2 = [], [], []
+    rec = obs_trace.enable(obs_trace.TraceRecorder())
+    calls = 0
+    try:
+        for name in NAMES:
+            sizes = block_sizes(name, P, B, seed=SEED)
+            rng = np.random.default_rng(SEED)
+            blocks = [rng.standard_normal((s, F), dtype=np.float32)
+                      for s in sizes]
+            want = np.concatenate(blocks)
+            free = build_gather_tree(sizes).root
+            for label, root in [(str(r), r) for r in ZOO_ROOTS] + [
+                    (f"free={free}", free)]:
+                trees = zoo_trees(sizes, root, label.startswith("free"),
+                                  row_params)
+                for tname, tree in trees.items():
+                    gaps = sum(1 for e in tree.edges if e.size > 0 and e.lo < 0)
+                    model_us = simulate_gather(tree, row_params)
+                    try:
+                        plan = rt.plan_gatherv(sizes, root, tree=tree)
+                    except ValueError:
+                        if not gaps:
+                            raise
+                        refused.append({"dist": name, "root": label,
+                                        "tree": tname, "lo_minus_1_edges": gaps,
+                                        "model_us": model_us})
+                        log(f"  {name:11s} root={label:7s} {tname:10s} refused "
+                            f"by plan_gatherv ({gaps} edges with lo=-1); model "
+                            f"only, at the paper's cluster parameters: "
+                            f"{model_us:.1f} us")
+                        continue
+                    if gaps:
+                        raise AssertionError(f"{tname} {name} root={label} has "
+                                             f"{gaps} edges with lo=-1 but "
+                                             f"plan_gatherv took it")
+                    got, _ = rt.run_gatherv(mesh, blocks, root, tree=tree)
+                    if not _same_bits(got, want):
+                        raise AssertionError(f"gatherv {tname} {name} "
+                                             f"root={label} differs")
+                    outs, _ = rt.run_scatterv(mesh, want, sizes, root,
+                                              tree=tree)
+                    _check_blocks(f"scatterv {tname} {name} root={label}",
+                                  outs, blocks)
+                    calls += 2
+                    flat = obs_trace.plan_link_bytes(plan.steps,
+                                                     row_bytes=row_bytes)
+                    split = obs_trace.plan_link_bytes(plan.steps, topo,
+                                                      row_bytes)
+                    if sum(split.values()) != flat["flat"]:
+                        raise AssertionError(f"link classes {split} do not sum "
+                                             f"to {flat}")
+                    tables = plan_tensors(plan, dev)
+                    x = torch.zeros((P, plan.cap, F), device=dev)
+                    for r, b in enumerate(blocks):
+                        x[r, : len(b)] = torch.from_numpy(b).to(dev)
+                    g_ms = median_ms(
+                        lambda: rt.gatherv_shard(x, plan, mesh, tables),
+                        PATH_REPS)
+                    del x
+                    buf_root = torch.zeros((P, plan.buf_rows, F), device=dev)
+                    buf_root[root, : plan.total] = torch.from_numpy(want).to(dev)
+                    s_ms = median_ms(
+                        lambda: rt.scatterv_shard(buf_root, plan, mesh, tables),
+                        PATH_REPS)
+                    del buf_root
+                    moved = plan.tree_bytes_exact * row_bytes
+                    row = {"dist": name, "root": label, "tree": tname,
+                           "steps": len(plan.steps), "buf_rows": plan.buf_rows,
+                           "tree_bytes_exact": moved,
+                           "tree_bytes_padded": plan.tree_bytes_padded
+                           * row_bytes, "bytes_by_link_class": split,
+                           "gatherv_ms": g_ms, "scatterv_ms": s_ms,
+                           "gatherv_GBps": moved / g_ms / 1e6,
+                           "scatterv_GBps": moved / s_ms / 1e6,
+                           "model_us_paper_cluster": model_us}
+                    rows.append(row)
+                    log(f"  {name:11s} root={label:7s} {tname:10s} "
+                        f"steps={row['steps']:2d} bytes={moved} "
+                        f"padded={row['tree_bytes_padded']} "
+                        f"gatherv_ms={g_ms:.3f} scatterv_ms={s_ms:.3f} "
+                        f"GB/s={row['gatherv_GBps']:.1f}/"
+                        f"{row['scatterv_GBps']:.1f} model at the paper's "
+                        f"cluster parameters: {model_us:.1f} us")
+                torch.cuda.empty_cache()
+            g2.append(measured_g2(dev, mesh, name, sizes, rows))
+            torch.cuda.empty_cache()
+    finally:
+        obs_trace.disable()
+    spans = rec.spans(cat="collective")
+    if (len(spans) != calls or rec.dropped
+            or {s.name for s in spans} != {"run/gatherv", "run/scatterv"}):
+        raise AssertionError(f"{len(spans)} spans ({rec.dropped} dropped) for "
+                             f"{calls} run_gatherv/run_scatterv calls")
+    by_op = rec.span_times_by("op", cat="collective")
+    if set(by_op) != {"gatherv", "scatterv"} or not np.isclose(
+            sum(by_op.values()), sum(s.dur for s in spans), rtol=1e-9):
+        raise AssertionError(f"span_times_by('op') {by_op} does not cover "
+                             f"the spans")
+    path = rec.save(os.path.join(REPO, "build", "phase9_trace.json"))
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    if len(events) != calls:
+        raise AssertionError(f"the Chrome trace holds {len(events)} events, "
+                             f"not {calls}")
+    log(f"  telemetry: {calls} spans, seconds by op {by_op}, Chrome trace "
+        f"{path} ({len(events)} events)")
+    return {"trees": rows, "refused": refused, "g2": g2,
+            "spans": calls, "span_seconds_by_op": by_op}
+
+
+def measured_g2(dev, mesh, name: str, sizes: list, rows: list) -> dict:
+    """G2 on the card, as ``benchmarks/jax_runtime.py`` measures it: the TUW
+    gatherv at root 0 against an allreducev of one row plus the gatherv of
+    the max-padded regular problem, all three timed alike."""
+    import repro_torch as rt
+    from repro_torch.core.carry import plan_tensors
+
+    tuw_ms = next(r["gatherv_ms"] for r in rows if r["dist"] == name
+                  and r["root"] == "0" and r["tree"] == "tuw")
+    ar_plan = rt.plan_allreducev([1] + [0] * (P - 1))
+    x = torch.randn((P, ar_plan.total, F), device=dev)
+    tables = plan_tensors(ar_plan, dev)
+    ar_ms = median_ms(lambda: rt.allreducev_shard(x, ar_plan, mesh, tables),
+                      PATH_REPS)
+    del x, tables
+    pad = rt.plan_gatherv([max(sizes)] * P, 0)
+    x = torch.randn((P, pad.cap, F), device=dev)
+    tables = plan_tensors(pad, dev)
+    pad_ms = median_ms(lambda: rt.gatherv_shard(x, pad, mesh, tables),
+                       PATH_REPS)
+    del x, tables
+    out = {"dist": name, "tuw_gatherv_ms": tuw_ms, "allreducev_1row_ms": ar_ms,
+           "padded_gatherv_ms": pad_ms, "padded_buf_rows": pad.buf_rows,
+           "ratio": tuw_ms / (ar_ms + pad_ms)}
+    log(f"  G2 {name:11s} root=0: TUW gatherv {tuw_ms:.3f} ms / (allreducev "
+        f"of one row {ar_ms:.3f} + padded gatherv {pad_ms:.3f} ms) = "
+        f"{out['ratio']:.3f} (no gate; LocalMesh copies all 16 slabs every "
+        f"step, so this measures the emulated dataplane, not a network)")
+    return out
+
+
 def breakdown(p: dict) -> dict:
     """A profile's device time split into K8, K9, the GEMMs and the rest."""
     by = p["device_ms_per_round"]
@@ -1804,6 +2008,15 @@ def main() -> int:
     del fns, ctx
     torch.cuda.empty_cache()
     log(f"  phase 8 s: {time.perf_counter() - t0:.1f}")
+
+    log("== phase 9: the paper's trees on the card (LocalMesh(16), bitwise, "
+        "traced)")
+    t0 = time.perf_counter()
+    zoo = main_path_launches("paper's trees",
+                             ("slab_extract", "slab_merge", "slab_step"),
+                             lambda: zoo_path(dev))
+    log(json.dumps({"zoo_path": zoo}))
+    log(f"  phase 9 s: {time.perf_counter() - t0:.1f}")
     for name, n in launches.items():
         record[name]["launches"] = n
 

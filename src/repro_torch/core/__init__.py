@@ -1,8 +1,21 @@
 """Core of the port: Träff 2017 linear-time irregular gather/scatter trees,
-the composed and reduction schedules built on them, their lowering to
-step tables, and the executors on PyTorch (``torch_collectives``) over a
-mesh of ranks (``mesh``)."""
-from .treegather import Edge, GatherTree, Merge, build_gather_tree, ceil_log2  # noqa: F401
+the fully distributed protocol (Lemma 3), the alpha-beta cost model, the
+baselines the paper compares against and the optimal trees, the
+guidelines G1–G4, the composed and reduction schedules built on the
+trees, their lowering to step tables, and the executors on PyTorch
+(``torch_collectives``) over a mesh of ranks (``mesh``)."""
+from .treegather import (  # noqa: F401
+    Edge, GatherTree, Merge, build_gather_tree, ceil_log2,
+    construction_alpha_rounds, lemma2_penalty_bound, theorem1_bound,
+)
+from .distributed import (  # noqa: F401
+    Plan, ProtocolStats, assemble_tree, build_gather_tree_distributed,
+)
+from .costmodel import (  # noqa: F401
+    CostParams, HierarchicalCostParams, HostTopology, allgatherv_time,
+    allreduce_time, alltoallv_time, edge_params_fn, simulate_composed,
+    simulate_gather, simulate_pipelined, simulate_scatter,
+)
 from .pipeline import (execute_allreducev_plan_numpy,  # noqa: F401
                        execute_alltoallv_plan_numpy,
                        execute_reduce_scatterv_plan_numpy,
@@ -11,7 +24,8 @@ from .pipeline import (execute_allreducev_plan_numpy,  # noqa: F401
                        segment_bounds)
 from .composed import (ComposedSchedule, Transfer,  # noqa: F401
                        allgatherv_schedule, alltoallv_direct_schedule,
-                       alltoallv_schedule, reduce_scatterv_direct_schedule,
+                       alltoallv_schedule, independent_scatter_bytes,
+                       reduce_scatterv_direct_schedule,
                        reduce_scatterv_halving_schedule,
                        reduce_scatterv_schedule, simulate_reduce_dataflow)
 from .torch_collectives import (  # noqa: F401
@@ -27,4 +41,4 @@ from .torch_collectives import (  # noqa: F401
 from .carry import (PlanTensors, StepTables, plan_from_numpy,  # noqa: F401
                     plan_tensors, plan_to_numpy, step_tensors)
 from .mesh import LocalMesh, ProcessGroupMesh  # noqa: F401
-from . import distributions  # noqa: F401
+from . import baselines, distributions, guidelines  # noqa: F401

@@ -2,8 +2,9 @@
 
 The port's own copy of the schedule part of ``repro.core.composed``:
 ``Transfer``, ``ComposedSchedule``, ``allgatherv_schedule`` (all four
-broadcasts), ``alltoallv_schedule``, ``alltoallv_direct_schedule``, the
-three reduce_scatterv schedules and ``simulate_reduce_dataflow``.  Every
+broadcasts), ``pat_allgatherv_schedule``, ``alltoallv_schedule``,
+``alltoallv_direct_schedule``, the three reduce_scatterv schedules,
+``simulate_reduce_dataflow`` and ``independent_scatter_bytes``.  Every
 schedule must equal the reference's transfer for transfer;
 ``tests/test_torch_composed.py`` and ``tests/test_torch_reduce.py`` hold
 them (and the plans lowered from them) against each other.
@@ -328,6 +329,47 @@ def allgatherv_schedule(m, root: int | None = None,
     return sched
 
 
+def pat_allgatherv_schedule(m, root: int | None = None) -> ComposedSchedule:
+    """PAT-style parallel aggregated trees for allgatherv (arXiv
+    2506.20252), ``p = 2^K`` only.
+
+    Recursive doubling where every rank takes part in every round: round
+    ``k`` pairs rank ``i`` with ``i XOR 2^k`` and each side sends its whole
+    currently held block group, the ``2^k``-aligned consecutive range
+    ``[⌊i/2^k⌋·2^k, …+2^k-1]``, so after ``log2 p`` rounds every rank holds
+    everything.  Each round is a perfect pairing of contiguous ranges (zero
+    transfers skipped), and the total time is ``log2(p)·α + β·Σ_k
+    max-group(k)``.  ``root`` is metadata only (the schedule is
+    symmetric); a non-power-of-two ``p`` raises.
+    """
+    m = [int(x) for x in m]
+    if any(x < 0 for x in m):
+        raise ValueError("block sizes must be non-negative")
+    p = len(m)
+    if p & (p - 1):
+        raise ValueError("pat_allgatherv_schedule needs p = 2^K")
+    sched = ComposedSchedule("allgatherv", p,
+                             0 if root is None else int(root),
+                             np.asarray([m], np.int64),
+                             np.zeros(1, np.int64))
+    offs = sched.offsets(0)
+    pref = np.concatenate([[0], np.cumsum(m)]).astype(np.int64)
+    k = 1
+    while k < p:
+        rnd = []
+        for i in range(p):
+            lo = (i // k) * k
+            hi = lo + k - 1
+            size = int(pref[hi + 1] - pref[lo])
+            if size > 0:
+                rnd.append(Transfer(i, i ^ k, size, int(offs[lo]),
+                                    0, lo, hi))
+        if rnd:
+            sched.rounds.append(rnd)
+        k <<= 1
+    return sched
+
+
 def alltoallv_schedule(size_matrix, tree_builder=None) -> ComposedSchedule:
     """alltoallv = p rooted scatter trees packed round-robin.
 
@@ -642,3 +684,16 @@ def simulate_reduce_dataflow(sched: ComposedSchedule
                 f"owner {j} is missing contributions "
                 f"{set(range(p)) - cov[(j, j)]}")
     return cov
+
+
+def independent_scatter_bytes(size_matrix) -> int:
+    """Reference byte count: p independent ``build_gather_tree`` scatters,
+    one per row (what the composed alltoallv schedule must match exactly)."""
+    S = np.asarray(size_matrix, dtype=np.int64)
+    total = 0
+    for r in range(S.shape[0]):
+        row = S[r]
+        if int(row.sum() - row[r]) > 0:
+            total += build_gather_tree(row.tolist(),
+                                       root=r).total_bytes_moved()
+    return total

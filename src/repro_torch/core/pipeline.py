@@ -1,8 +1,9 @@
 """Segmented pipelining of round-synchronous schedules (beyond-paper layer).
 
 The port's own copy of ``segment_bounds``, ``pipeline_rounds``,
-``pipeline_rounds_per_tree``, ``num_stages`` and the NumPy step
-executors (``execute_*_numpy``) of ``repro.core.pipeline``.  The flat row space
+``pipeline_rounds_per_tree``, ``num_stages``, the NumPy step
+executors (``execute_*_numpy``) and ``plan_host_times`` of
+``repro.core.pipeline``.  The flat row space
 ``[0, total)`` is cut into ``S`` contiguous chunks; the piece of a
 round-``k`` transfer that falls in chunk ``j`` is scheduled at stage
 ``k + j``.  A row in chunk ``j`` only ever travels in chunk-``j`` pieces,
@@ -225,3 +226,51 @@ def execute_allreducev_plan_numpy(plan, contribs) -> list[np.ndarray]:
     # allgatherv start state; its steps overwrite, never add
     fin = execute_steps_numpy(plan.ag.steps, bufs)
     return [fin[j, : plan.total] for j in range(plan.p)]
+
+
+def plan_host_times(steps, p: int, params, row_bytes: int = 1,
+                    topology=None) -> dict:
+    """Per-rank (or per-host) port-occupancy seconds of a lowered plan.
+
+    Each step charges both endpoints of every ``(src, dst)`` pair one
+    startup plus the bandwidth of the rows actually received
+    (``recv_valid[dst]`` rows × ``row_bytes``) on their send/recv port,
+    priced through :func:`repro_torch.core.costmodel.edge_params_fn`, so a
+    ``DegradedCostParams`` overlay shows up in the per-host times.
+    Returns ``{rank: seconds}``, or ``{host: seconds}`` (max over the
+    host's ranks: its slowest port) when a ``HostTopology`` is given.
+    """
+    from .costmodel import edge_params_fn
+
+    params.validate()
+    ab = edge_params_fn(params)
+    rb = float(row_bytes)
+    t = [0.0] * int(p)
+    for perm, _payload, _send_start, _recv_start, recv_valid in steps:
+        for s, d in perm:
+            a, b = ab(s, d)
+            c = a + b * float(recv_valid[d]) * rb
+            t[s] += c
+            t[d] += c
+    if topology is None:
+        return {r: t[r] for r in range(int(p))}
+    out: dict = {}
+    for r in range(int(p)):
+        h = topology.host_of(r)
+        out[h] = max(out.get(h, 0.0), t[r])
+    return out
+
+
+def execute_scatter_steps_numpy(plan, bufs: np.ndarray) -> np.ndarray:
+    """NumPy mirror of ``scatterv_shard``'s reverse walk: the gather plan's
+    steps run backwards with transposed tables (the parent pushes the same
+    global row ranges back down the tree)."""
+    bufs = np.array(bufs, copy=True)
+    for perm, _payload, send_start, _recv_start, recv_valid in \
+            reversed(plan.steps):
+        snap = bufs.copy()
+        for src, dst in perm:
+            s0 = int(send_start[src])     # the parent reads where the child sent
+            nv = int(recv_valid[dst])
+            bufs[src, s0: s0 + nv] = snap[dst, s0: s0 + nv]
+    return bufs

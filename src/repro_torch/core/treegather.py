@@ -2,7 +2,9 @@
 
 The port's own copy of the centralized tree construction of
 ``repro.core.treegather``: ``ceil_log2``, ``Edge``, ``Merge``,
-``GatherTree``, ``_Cube``, ``_pick_sender`` and ``build_gather_tree``.
+``GatherTree``, ``_Cube``, ``_pick_sender`` and ``build_gather_tree``,
+and of Theorem 1's bounds (``lemma2_penalty_bound``, ``theorem1_bound``,
+``construction_alpha_rounds``).
 It must give edge lists identical to the reference's for every input;
 ``tests/test_torch_plans.py`` holds the two against each other.
 
@@ -263,3 +265,36 @@ def build_gather_tree(m: list[int], root: int | None = None,
     if root is not None:
         assert t.root == root, "fixed root must end up the gather root"
     return t
+
+
+def lemma2_penalty_bound(tree: GatherTree, m: list[int], beta: float) -> float:
+    """Max additive waiting penalty beta*(M_d' - m_{r_d'} - sum_{j<d'} M_j).
+
+    Only meaningful for fixed-root trees; 0 when no receive can be delayed.
+    """
+    into_root = sorted((e for e in tree.edges if e.parent == tree.root),
+                       key=lambda e: e.round)
+    acc = 0
+    worst = 0.0
+    for e in into_root:
+        delay = beta * (e.size - m[e.child] - acc)
+        worst = max(worst, delay)
+        acc += e.size
+    return max(0.0, worst)
+
+
+def theorem1_bound(m: list[int], root: int, alpha: float, beta: float,
+                   include_construction: bool = True) -> float:
+    """3*ceil(log2 p)*alpha + beta*sum_{i != r} m_i (Theorem 1), the bound
+    WITHOUT the waiting penalty; add lemma2_penalty_bound for fixed roots.
+    """
+    p = len(m)
+    d = ceil_log2(p)
+    a_rounds = 3 * d if include_construction else d
+    return a_rounds * alpha + beta * (sum(m) - m[root])
+
+
+def construction_alpha_rounds(p: int) -> int:
+    """Dependent constant-size communication steps to build the tree (Lemma 3)."""
+    d = ceil_log2(p)
+    return max(0, 2 * d - 1)

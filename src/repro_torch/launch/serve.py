@@ -13,8 +13,8 @@ timings; the ServingPlanner hook (``--experts > 0``) and
 7–8), so ``--experts`` defaults to 0 and any other value raises, as does
 ``--trace-replay`` (and ``--top-k``, which only the planner reads, is
 left out); decode-step spans go to an active
-``repro_torch.obs.trace`` recorder, which has no file export yet, so there
-is no ``--trace-out``.
+``repro_torch.obs.trace`` recorder (``TraceRecorder.save`` writes its
+Chrome trace); ``--trace-out`` waits for the serving planner.
 """
 from __future__ import annotations
 

@@ -1,17 +1,20 @@
-"""Pure-Python metrics registry: counters and fixed-bucket histograms.
+"""Pure-Python metrics registry: counters, gauges, fixed-bucket histograms.
 
-The port's own copy of the parts of ``repro.obs.metrics`` that the
-``run_*`` entry points publish to: :class:`Counter`, :class:`Histogram`,
-:class:`Registry` and the module-level :data:`REGISTRY`.  Everything is
-process-local and synchronous; one event is one dict/int update, cheap
-enough to leave on unconditionally.
+The port's own copy of ``repro.obs.metrics``: :class:`Counter`,
+:class:`Gauge`, :class:`Histogram`, :class:`Registry` and the
+module-level :data:`REGISTRY` the ``run_*`` entry points publish to.
+Everything is process-local and synchronous; one event is one dict/int
+update, cheap enough to leave on unconditionally.
 
     >>> reg = Registry()
     >>> reg.counter("run_gatherv").inc()
+    >>> reg.gauge("params_epoch").set(3)
     >>> reg.histogram("run_seconds", buckets=(1e-3, 1e-1)).observe(0.01)
     >>> snap = reg.snapshot()
-    >>> snap["counters"]["run_gatherv"], snap["histograms"]["run_seconds"]["counts"]
-    (1, [0, 1, 0])
+    >>> snap["counters"]["run_gatherv"], snap["gauges"]["params_epoch"]
+    (1, 3)
+    >>> snap["histograms"]["run_seconds"]["counts"]
+    [0, 1, 0]
 """
 from __future__ import annotations
 
@@ -30,6 +33,22 @@ class Counter:
     def inc(self, n: int = 1) -> None:
         if n < 0:
             raise ValueError("counters only go up")
+        self.value += n
+
+
+class Gauge:
+    """Last-write-wins scalar."""
+
+    __slots__ = ("name", "value")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.value = 0.0
+
+    def set(self, v) -> None:
+        self.value = v
+
+    def inc(self, n=1) -> None:
         self.value += n
 
 
@@ -66,6 +85,10 @@ class Histogram:
                 return
         self.counts[-1] += 1
 
+    @property
+    def mean(self) -> float:
+        return self.sum / self.count if self.count else 0.0
+
 
 class Registry:
     """Get-or-create home for named metrics.
@@ -90,16 +113,21 @@ class Registry:
     def counter(self, name: str) -> Counter:
         return self._get(name, Counter)
 
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge)
+
     def histogram(self, name: str,
                   buckets=Histogram.DEFAULT_BUCKETS) -> Histogram:
         return self._get(name, Histogram, buckets=buckets)
 
     def snapshot(self) -> dict:
         """JSON-safe dump of every metric, grouped by kind."""
-        out = {"counters": {}, "histograms": {}}
+        out = {"counters": {}, "gauges": {}, "histograms": {}}
         for name, m in sorted(self._metrics.items()):
             if isinstance(m, Counter):
                 out["counters"][name] = m.value
+            elif isinstance(m, Gauge):
+                out["gauges"][name] = m.value
             else:
                 out["histograms"][name] = {
                     "buckets": list(m.buckets), "counts": list(m.counts),

@@ -64,6 +64,21 @@ model = Transformer(cfg, device="cpu")
 res = serve.serve_requests(model.params, cfg, [np.arange(20), np.arange(7)],
                            batch=2, gen=2, device="cpu")
 assert [len(t) for t in res["tokens"]] == [3, 3]
+from repro_torch.core import (baselines, costmodel, distributed, extensions,
+                              guidelines, opttrees)
+from repro_torch.obs import guidelines_monitor, residuals
+m = [3, 0, 5, 2, 7]
+qdr = costmodel.CostParams.infiniband_qdr()
+for t in (opttrees.optimal_gather_tree(m, 1, qdr.alpha, qdr.beta),
+          baselines.linear_tree(m, 1), extensions.build_kported_tree(m, 2, 1),
+          distributed.build_gather_tree_distributed(m, 1)[0]):
+    assert costmodel.simulate_gather(t, qdr) > 0
+    got, _ = rt.run_gatherv(rt.LocalMesh(5, device="cpu"),
+                            [np.ones((s, 2), np.float32) for s in m], 1, tree=t)
+    assert got.shape == (17, 2)
+assert guidelines.evaluate(m, 1, qdr).padded_rhs_time > 0
+assert guidelines_monitor.GuidelineMonitor().check("gatherv", m, 1.0, qdr)
+assert not residuals.ResidualLedger().record("gatherv", 1.0, 1.1)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
@@ -92,7 +107,7 @@ def test_no_source_imports_jax_or_repro():
     files = list(_port_files())
     assert len(files) > 10
     for sub in ("core", "kernels", "models", "configs", "train", "launch",
-                "flash_attention", "rg_lru"):
+                "obs", "flash_attention", "rg_lru"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
     for path in files:
         with open(path) as fh:
