@@ -116,14 +116,39 @@ Phases, in order; any failure raises and the exit code is nonzero:
    ``obs.trace`` on: one span per ``run_*`` call, ``span_times_by("op")``
    covering them, the Chrome trace saved under ``build/`` and read back,
    and each plan's bytes split over a 4 × 4 ``HostTopology`` summing to
-   the flat count; K1–K3 must have been launched.
+   the flat count; K1–K3 must have been launched;
+10. the tuner on the card, on ``LocalMesh(16, hosts=4)`` at phase 9's
+   sizes: (a) ``HostTopology.from_mesh`` reads 4 x 4 and
+   ``mesh_fingerprint`` carries ``hosts=4x4`` (unlike the flat mesh's);
+   ``tree_metadata_exchange`` on the card agrees on every rank with the
+   root, total and ``total - sizes[root]`` of ``build_gather_tree`` and
+   ``build_gather_tree_distributed`` for each distribution; (b)
+   ``calibrate(MeshTimingBackend(LocalMesh(2)))`` over 4 KiB to 64 MiB
+   (``CAL_SIZES``; the reference's ``DEFAULT_SIZES`` stop where a device
+   copy is far below one launch): alpha, beta and r2 of the emulated
+   dataplane (a device-local copy, not a link), and ``calibrate_axes``
+   over ``device`` and ``host`` finite and positive (on one card both
+   time the same copy); (c) for each distribution, gatherv and scatterv
+   at root 0, allgatherv, alltoallv (phase 5's size matrix),
+   reduce_scatterv and allreducev: every candidate of
+   ``enumerate_candidates(view="dataplane", topology=HostTopology(4,
+   4))`` at the card's fitted alpha and beta (beta per 4 KiB row) raced
+   by ``select`` through its ``*_shard`` entry point (CUDA events, median of ``RACE_REPS``), each
+   result bitwise (byte moves against the concatenated blocks, reductions
+   at F=4 against the NumPy executors and the full width's first four
+   columns against that);
+   the races feed ``OnlineCalibrator``s seeded with (b)'s fit; one line a
+   problem with the model's and the measured argmin, Kendall's tau, each
+   candidate's model and measured time and the refit (the agreement is a
+   finding, not a gate); K1–K5 must have been launched.
 
 The line before the last is a JSON object with one entry per kernel
-(K1–K9), launches counted over phases 3, 5–9; the last is
+(K1–K9), launches counted over phases 3, 5–10; the last is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -173,6 +198,16 @@ RGLRU_TOL = 1e-5              # K9 vs plain (the reference's Pallas tolerance)
 ZOO_ROOTS = (0, 7)            # phase 9, and the free root of build_gather_tree
 ZOO_QDR_ROW = 1024            # MPI_INT units in a 4 KiB row (the paper's beta)
 ZOO_HOSTS = (4, 4)            # hosts x ranks of the link-class split
+TUNER_HOSTS = (4, 4)          # phase 10: LocalMesh(16, hosts=4)
+# phase 10's calibration sweep: 4 KiB to 64 MiB, the slabs the plans move
+# (the reference's DEFAULT_SIZES stop at 1 MiB, where a device copy is far
+# below one launch and beta is not identified)
+CAL_SIZES = tuple(4096 << (2 * i) for i in range(8))
+CAL_REPEATS = 5
+RACE_REPS = 3          # phase 10: CUDA-event median per raced candidate
+# phase 10's NumPy check of each raced reduction: 16-byte rows (at F=16 the
+# checks of the 60 reduction candidates kept the phase near two minutes)
+RACE_ORACLE_F = 4
 CSRC = "src/repro_torch/kernels/ragged_gather/csrc/"
 SOURCES = {"slab_extract": CSRC + "slab.cu", "slab_merge": CSRC + "slab.cu",
            "slab_step": CSRC + "slab.cu",
@@ -673,6 +708,13 @@ def profile_reduce_phase(dev, name: str, segments: int) -> dict:
         f"reduce_scatterv {name}/S={segments} steps={len(plan.steps)}",
         {"reduce_scatterv":
             lambda: rt.reduce_scatterv_shard(x, plan, mesh, tables)})
+    # LocalMesh's exchange: PyTorch's index_select and index_copy_ kernels
+    ex = sum(ms for k, ms in out["device_ms_per_round"].items()
+             if "index" in k.lower())
+    out["exchange_share_of_busy"] = (ex / out["busy_ms_per_round"]
+                                     if out["busy_ms_per_round"] else None)
+    log(f"  the exchange (index kernels) {ex:.3f} ms of "
+        f"{out['busy_ms_per_round']:.3f} ms busy")
     del x
     torch.cuda.empty_cache()
     return out
@@ -1793,9 +1835,254 @@ def measured_g2(dev, mesh, name: str, sizes: list, rows: list) -> dict:
            "ratio": tuw_ms / (ar_ms + pad_ms)}
     log(f"  G2 {name:11s} root=0: TUW gatherv {tuw_ms:.3f} ms / (allreducev "
         f"of one row {ar_ms:.3f} + padded gatherv {pad_ms:.3f} ms) = "
-        f"{out['ratio']:.3f} (no gate; LocalMesh copies all 16 slabs every "
-        f"step, so this measures the emulated dataplane, not a network)")
+        f"{out['ratio']:.3f} (no gate; this measures LocalMesh's emulated "
+        f"dataplane, not a network)")
     return out
+
+
+# ---------------------------------------------------------------- phase 10
+
+def kendall_tau(x, y) -> float:
+    """Kendall's tau-b of two equally long sequences (ties in either count
+    against neither order); NaN when one of them is constant."""
+    conc = disc = tie_x = tie_y = 0
+    for i in range(len(x)):
+        for j in range(i + 1, len(x)):
+            dx, dy = np.sign(x[i] - x[j]), np.sign(y[i] - y[j])
+            if dx == 0 and dy == 0:
+                continue
+            if dx == 0:
+                tie_x += 1
+            elif dy == 0:
+                tie_y += 1
+            elif dx == dy:
+                conc += 1
+            else:
+                disc += 1
+    denom = ((conc + disc + tie_x) * (conc + disc + tie_y)) ** 0.5
+    return (conc - disc) / denom if denom else float("nan")
+
+
+class RowCalibrators:
+    """Hands each race to every ``OnlineCalibrator`` of ``cals`` with the
+    candidate's row weights scaled to bytes (the dataplane view prices
+    rows of ``F`` fp32 values)."""
+
+    def __init__(self, *cals):
+        self.cals = cals
+
+    def observe_candidate(self, cand, seconds: float) -> None:
+        for c in self.cals:
+            c.observe_candidate(cand, seconds, row_bytes=F * 4)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32)
+
+
+def race_problems(dev, name: str, x: torch.Tensor, sizes: list, S: list):
+    """The six problems of one distribution for phase 10: ``(op, arg,
+    root, setup, check)``.  ``setup(plan, tables)`` makes the thunk that
+    runs the candidate's plan through its ``*_shard`` entry point on
+    device tensors at F = 1024 fp32 (inputs made outside it);
+    ``check(plan, out)`` holds that output bitwise: byte moves
+    against the concatenated blocks, reductions at F = ``RACE_ORACLE_F``
+    against the port's NumPy executors and the full width's first
+    ``RACE_ORACLE_F`` columns against that narrow run."""
+    import repro_torch as rt
+    from repro_torch.core.pipeline import (execute_allreducev_plan_numpy,
+                                           execute_reduce_scatterv_plan_numpy)
+
+    total = sum(sizes)
+    cap = max(sizes)
+    x_g = torch.zeros((P, cap, F), device=dev)
+    for r in range(P):
+        x_g[r, : sizes[r]] = x[r, : sizes[r]]
+    want = torch.cat([x[r, : sizes[r]] for r in range(P)])
+    a2a_cap = max(sum(row) for row in S)
+    x_a = torch.zeros((P, a2a_cap, F), device=dev)
+    for r in range(P):
+        x_a[r, : sum(S[r])] = x[r, : sum(S[r])]
+    offs = [np.concatenate([[0], np.cumsum(row)[:-1]]) for row in S]
+    want_a = [torch.cat([x_a[i, offs[i][j]: offs[i][j] + S[i][j]]
+                         for i in range(P)]) for j in range(P)]
+    narrow = x[:, :, :RACE_ORACLE_F].contiguous()
+    narrow_host = list(narrow.cpu().numpy())
+    mesh = rt.LocalMesh(P, device=dev, hosts=TUNER_HOSTS[0])
+
+    def check_gatherv(plan, buf):
+        if not torch.equal(_bits(buf[0, :total]), _bits(want)):
+            raise AssertionError(f"gatherv {name} differs")
+
+    def setup_scatterv(plan, tables):
+        buf = torch.zeros((P, plan.buf_rows, F), device=dev)
+        buf[0, :total] = want      # only the root's rows are read
+        return lambda: rt.scatterv_shard(buf, plan, mesh, tables)
+
+    def check_scatterv(plan, out):
+        for r in range(P):
+            if not torch.equal(_bits(out[r, : sizes[r]]),
+                               _bits(x[r, : sizes[r]])):
+                raise AssertionError(f"scatterv {name} rank {r} differs")
+
+    def check_allgatherv(plan, buf):
+        for r in range(P):
+            if not torch.equal(_bits(buf[r, :total]), _bits(want)):
+                raise AssertionError(f"allgatherv {name} rank {r} differs")
+
+    def check_alltoallv(plan, out):
+        for j in range(P):
+            if not torch.equal(_bits(out[j, : plan.out_valid[j]]),
+                               _bits(want_a[j])):
+                raise AssertionError(f"alltoallv {name} rank {j} differs")
+
+    def check_reduce(shard, oracle, rows_of):
+        def check(plan, out):
+            got = shard(narrow, plan, mesh).cpu().numpy()
+            ref = oracle(plan, narrow_host)
+            head = out[:, :, :RACE_ORACLE_F].cpu().numpy()
+            for r in range(P):
+                n = rows_of(plan, r)
+                if not (_same_bits(got[r, :n], ref[r])
+                        and _same_bits(head[r, :n], got[r, :n])):
+                    raise AssertionError(f"{shard.__name__} {name} rank {r} "
+                                         f"differs")
+        return check
+
+    def on(shard, xin):
+        return lambda plan, t: lambda: shard(xin, plan, mesh, t)
+
+    return [
+        ("gatherv", sizes, 0, on(rt.gatherv_shard, x_g), check_gatherv),
+        ("scatterv", sizes, 0, setup_scatterv, check_scatterv),
+        ("allgatherv", sizes, None, on(rt.allgatherv_shard, x_g),
+         check_allgatherv),
+        ("alltoallv", S, None, on(rt.alltoallv_shard, x_a), check_alltoallv),
+        ("reduce_scatterv", sizes, None, on(rt.reduce_scatterv_shard, x),
+         check_reduce(rt.reduce_scatterv_shard,
+                      execute_reduce_scatterv_plan_numpy,
+                      lambda plan, r: plan.sizes[r])),
+        ("allreducev", sizes, None, on(rt.allreducev_shard, x),
+         check_reduce(rt.allreducev_shard, execute_allreducev_plan_numpy,
+                      lambda plan, r: plan.total)),
+    ]
+
+
+def tuner_path(dev) -> dict:
+    """Phase 10: the host split, the metadata exchange, the card's (alpha,
+    beta) and the tuner's candidates raced on ``LocalMesh(16, hosts=4)``.
+    Every candidate of every problem is raced (all buckets of the default
+    enumeration), so the model's ranking can be read in full."""
+    import repro_torch as rt
+    from repro_torch import tuner as tt
+    from repro_torch.core.carry import plan_tensors
+    from repro_torch.core.costmodel import CostParams, HostTopology
+    from repro_torch.core.distributed import build_gather_tree_distributed
+    from repro_torch.core.distributions import NAMES, block_sizes
+    from repro_torch.core.treegather import build_gather_tree
+
+    hosts, per_host = TUNER_HOSTS
+    mesh = rt.LocalMesh(P, device=dev, hosts=hosts)
+    topo = HostTopology.from_mesh(mesh)
+    fp, flat_fp = (tt.mesh_fingerprint(mesh),
+                   tt.mesh_fingerprint(rt.LocalMesh(P, device=dev)))
+    if topo != HostTopology(hosts, per_host) or \
+            f"hosts={hosts}x{per_host}" not in fp or fp == flat_fp:
+        raise AssertionError(f"host split {topo}, fingerprint {fp} (flat "
+                             f"{flat_fp})")
+    log(f"  (a) HostTopology.from_mesh: {topo.hosts} x "
+        f"{topo.devices_per_host}; fingerprint {fp} (flat: {flat_fp})")
+    meta = []
+    for name in NAMES:
+        sizes = block_sizes(name, P, B, seed=SEED)
+        root = build_gather_tree(sizes).root
+        if build_gather_tree_distributed(sizes)[0].root != root:
+            raise AssertionError(f"host protocols disagree on {name}")
+        est, groot, total = (v.tolist() for v in
+                             rt.tree_metadata_exchange(sizes, mesh))
+        if (groot, total, est) != ([root] * P, [sum(sizes)] * P,
+                                   [sum(sizes) - sizes[root]] * P):
+            raise AssertionError(f"metadata exchange {name}: root {groot}, "
+                                 f"total {total}, est {est}; want {root}")
+        meta.append({"dist": name, "root": root, "total": total[0],
+                     "est": est[0]})
+    log(f"  (a) tree_metadata_exchange agreed on all {P} ranks: "
+        + ", ".join(f"{m['dist']} root {m['root']} total {m['total']} "
+                    f"est {m['est']}" for m in meta))
+
+    cal = tt.calibrate(tt.MeshTimingBackend(rt.LocalMesh(2, device=dev)),
+                       sizes=CAL_SIZES, repeats=CAL_REPEATS)
+    log(f"  (b) the emulated dataplane's fit (a device-local copy on "
+        f"LocalMesh(2), not a link): alpha {cal.alpha_s * 1e6:.3f} us, "
+        f"beta {cal.beta_s_per_byte * 1e12:.4f} ps/B "
+        f"({1e-9 / cal.beta_s_per_byte:.1f} GB/s), r2 {cal.r2:.6f}")
+    axes = tt.calibrate_axes({a: tt.MeshTimingBackend(mesh, a)
+                              for a in ("device", "host")},
+                             sizes=CAL_SIZES, repeats=CAL_REPEATS)
+    for a, f in axes.items():
+        if not (np.isfinite([f.alpha_s, f.beta_s_per_byte]).all()
+                and f.alpha_s >= 0 and f.beta_s_per_byte > 0):
+            raise AssertionError(f"axis {a} fit {f}")
+        log(f"  (b) axis {a:6s} ({f.backend}): alpha {f.alpha_s * 1e6:.3f} "
+            f"us, beta {f.beta_s_per_byte * 1e12:.4f} ps/B, r2 {f.r2:.6f}")
+    row_params = CostParams(cal.alpha_s, cal.beta_s_per_byte * F * 4, "s",
+                            "row(4 KiB)")
+    overall = tt.OnlineCalibrator(cal)
+    problems = []
+    for k, name in enumerate(NAMES):
+        sizes = block_sizes(name, P, B, seed=SEED)
+        S = [block_sizes(name, P, A2A_B, seed=i) for i in range(P)]
+        g = torch.Generator(device=dev).manual_seed(SEED + 20 + k)
+        x = torch.randn((P, sum(sizes), F), generator=g, device=dev)
+        for op, arg, root, setup, check in race_problems(dev, name, x, sizes,
+                                                         S):
+            cands = tt.enumerate_candidates(op, arg, root, row_params,
+                                            view="dataplane", topology=topo)
+
+            def measure(cand, setup=setup, check=check):
+                plan = cand.build()
+                run = setup(plan, plan_tensors(plan, dev))
+                check(plan, run())
+                return median_ms(run, RACE_REPS) / 1e3
+
+            local = tt.OnlineCalibrator(cal)
+            sel = tt.select(cands, row_params, measure=measure,
+                            top_k=len(cands),
+                            calibrator=RowCalibrators(local, overall))
+            model = dict(sel.costs)
+            meas = dict(sel.measured)
+            names = [n for n, _ in sel.costs]
+            tau = kendall_tau([model[n] for n in names],
+                              [meas[n] for n in names])
+            fit = local.fitted()
+            row = {"op": op, "dist": name, "root": root,
+                   "model_argmin": names[0],
+                   "measured_argmin": sel.chosen, "kendall_tau": tau,
+                   "model_ms": {n: model[n] * 1e3 for n in names},
+                   "measured_ms": {n: meas[n] * 1e3 for n in names},
+                   "refit_alpha_s": fit.alpha_s,
+                   "refit_beta_s_per_byte": fit.beta_s_per_byte}
+            problems.append(row)
+            log(f"  (c) {op:15s} {name:11s} model argmin {names[0]:22s} "
+                f"measured argmin {sel.chosen:22s} tau {tau:+.3f} refit "
+                f"alpha {fit.alpha_s * 1e6:.3f} us beta "
+                f"{fit.beta_s_per_byte * 1e12:.4f} ps/B | "
+                + "  ".join(f"{n} {model[n] * 1e3:.3f}/{meas[n] * 1e3:.3f}"
+                            for n in names))
+        del x
+        torch.cuda.empty_cache()
+    fit = overall.fitted()
+    agree = sum(r["model_argmin"] == r["measured_argmin"] for r in problems)
+    log(f"  (c) {len(problems)} problems, {sum(len(r['model_ms']) for r in problems)} "
+        f"races; model and measured argmin agree on {agree}; median tau "
+        f"{np.nanmedian([r['kendall_tau'] for r in problems]):+.3f}; refit "
+        f"over all races: alpha {fit.alpha_s * 1e6:.3f} us, beta "
+        f"{fit.beta_s_per_byte * 1e12:.4f} ps/B (ms above: model/measured)")
+    return {"fingerprint": fp, "metadata": meta,
+            "calibration": dataclasses.asdict(cal),
+            "axes": {a: dataclasses.asdict(f) for a, f in axes.items()},
+            "problems": problems,
+            "refit_all": dataclasses.asdict(fit)}
 
 
 def breakdown(p: dict) -> dict:
@@ -2017,6 +2304,16 @@ def main() -> int:
                              lambda: zoo_path(dev))
     log(json.dumps({"zoo_path": zoo}))
     log(f"  phase 9 s: {time.perf_counter() - t0:.1f}")
+
+    log("== phase 10: the tuner on the card (LocalMesh(16, hosts=4): host "
+        "split, metadata exchange, calibration, raced candidates, bitwise)")
+    t0 = time.perf_counter()
+    tuned = main_path_launches("tuner's races",
+                               ("slab_extract", "slab_merge", "slab_step",
+                                "slab_merge_add", "slab_step_reduce"),
+                               lambda: tuner_path(dev))
+    log(json.dumps({"tuner_path": tuned}))
+    log(f"  phase 10 s: {time.perf_counter() - t0:.1f}")
     for name, n in launches.items():
         record[name]["launches"] = n
 

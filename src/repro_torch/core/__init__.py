@@ -36,7 +36,7 @@ from .torch_collectives import (  # noqa: F401
     plan_gatherv, plan_reduce_scatterv, reduce_scatterv_shard,
     run_allgatherv, run_allreducev, run_alltoallv, run_gatherv,
     run_reduce_scatterv, run_scatterv, scatterv_shard, set_fault_hook,
-    use_kernel_dataplane,
+    tree_metadata_exchange, use_kernel_dataplane,
 )
 from .carry import (PlanTensors, StepTables, plan_from_numpy,  # noqa: F401
                     plan_tensors, plan_to_numpy, step_tensors)

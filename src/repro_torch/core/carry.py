@@ -96,16 +96,19 @@ class StepTables:
     """One walk of a plan's steps on the device.  ``perms`` and
     ``payloads`` stay on the host: they fix the exchange pairs and the
     slab shapes.  The three offset tables are ``(n_steps, n_local)``
-    int32, one column per rank held here; ``src_of`` is ``(n_steps, p)``
-    int32, the sender of each receiving rank in each step and -1 where a
-    rank receives nothing."""
+    int32, one column per rank held here.  ``recv_dst[k]`` and
+    ``recv_src[k]`` are step ``k``'s receivers and their senders, int64
+    ``(pairs,)`` each, in the order of ``perms[k]`` (what
+    ``LocalMesh.ppermute`` copies); a rank not in ``recv_dst[k]``
+    receives nothing in step ``k``."""
 
     perms: tuple
     payloads: tuple
     send_start: torch.Tensor
     recv_start: torch.Tensor
     recv_valid: torch.Tensor
-    src_of: torch.Tensor
+    recv_dst: tuple
+    recv_src: tuple
 
 
 @dataclass(frozen=True)
@@ -145,18 +148,21 @@ def step_tensors(steps, p: int, device, ranks=None) -> StepTables:
     cols = list(range(p) if ranks is None else ranks)
     n = len(steps)
     tabs = np.zeros((3, n, len(cols)), np.int32)
-    src_of = np.full((n, p), -1, np.int32)
-    for k, (perm, _payload, send_start, recv_start, recv_valid) in \
+    for k, (_perm, _payload, send_start, recv_start, recv_valid) in \
             enumerate(steps):
         tabs[0, k] = np.asarray(send_start)[cols]
         tabs[1, k] = np.asarray(recv_start)[cols]
         tabs[2, k] = np.asarray(recv_valid)[cols]
-        for s, d in perm:
-            src_of[k, d] = s
     dev = torch.from_numpy(tabs).to(device)
+    # every step's pairs in one host-to-device copy, then split by step
+    counts = [len(st[0]) for st in steps]
+    pairs = torch.tensor([(d, s) for st in steps for s, d in st[0]],
+                         dtype=torch.int64).reshape(-1, 2)
+    dst, src = pairs.T.contiguous().to(device)
     return StepTables(tuple(st[0] for st in steps),
                       tuple(int(st[1]) for st in steps),
-                      dev[0], dev[1], dev[2], torch.from_numpy(src_of).to(device))
+                      dev[0], dev[1], dev[2], dst.split(counts),
+                      src.split(counts))
 
 
 def _column(values, ranks, device) -> torch.Tensor:

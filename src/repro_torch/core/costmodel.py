@@ -3,8 +3,7 @@ bidirectional (telephone-like) communication — the paper's machine model.
 
 The port's own copy of ``repro.core.costmodel``, held equal to it by
 ``tests/test_torch_costmodel.py`` (the same arithmetic, so the same
-floats).  ``HostTopology.from_mesh``, which reads JAX device process
-indices, is left out.
+floats).
 
 ``simulate_gather`` computes the completion time of a gather tree exactly
 under this model in O(p log p): every node owns one send port and one
@@ -132,6 +131,20 @@ class HostTopology:
         if p is not None:
             hi = min(hi, p)
         return lo, hi
+
+    @staticmethod
+    def from_mesh(mesh) -> "HostTopology | None":
+        """The host split of a port mesh (``LocalMesh`` or
+        ``ProcessGroupMesh``, whose ``hosts`` the reference reads from
+        JAX process indices or an explicit ``host`` axis).  ``None`` for
+        ``None``; a flat (1-host) topology for a one-host mesh."""
+        if mesh is None:
+            return None
+        hosts = int(mesh.hosts)
+        if hosts < 1 or mesh.p % hosts:
+            raise ValueError(f"{mesh.p} devices do not split over "
+                             f"{hosts} hosts")
+        return HostTopology(hosts, mesh.p // hosts)
 
 
 @dataclass(frozen=True)

@@ -1184,3 +1184,67 @@ def run_allreducev(mesh, contribs: list[np.ndarray], sizes,
     out = _run_traced("allreducev", plan, F * contribs[0].dtype.itemsize,
                       run)
     return out, plan
+
+
+# --------------------------------------------------------------------------
+# the Lemma-3 metadata protocol on the mesh (scalar exchanges, static pairs)
+# --------------------------------------------------------------------------
+
+def tree_metadata_exchange(m, mesh):
+    """Run the fully distributed construction's metadata rounds on the
+    mesh's device, with the sizes as device data.
+
+    ``m``: the block sizes of the ranks held here, ``(n_local,)`` (all
+    ``p`` on a ``LocalMesh``, one on a ``ProcessGroupMesh``).  The
+    fixed-root pairing is computable from the rank, so every round is the
+    static cube permutation ``i <-> i ^ 2^d``; only the four scalars each
+    rank carries for its cube (estimate, the gather root's size, the
+    gather root's id, the total) travel.  On a ``LocalMesh`` a round is
+    one ``ppermute`` of a ``(p, 1, 4)`` tensor, on a ``ProcessGroupMesh``
+    one ``batch_isend_irecv`` of four int64 values.  The decision rule is
+    ``distributed._decide_lower_sends``'s free-root rule: the smaller
+    estimate sends, ties go to the smaller total, then to the lower cube.
+
+    Returns int64 ``(est, gather_root, total)``, each ``(n_local,)``, after
+    ``ceil(log2 p)`` rounds: every rank learns the algorithm-chosen root,
+    ``total - m[root]`` and the total, with no host sync inside the
+    rounds.  Requires ``p = 2^k``, as the reference does (the general-p
+    rule lives in the host protocol, ``core.distributed``).
+    """
+    from .carry import step_tensors  # carry imports this module
+
+    p = mesh.p
+    if p & (p - 1):
+        raise ValueError("in-graph demo requires p = 2^k; host protocol "
+                         "handles general p")
+    dev = mesh.device
+    m = torch.as_tensor(m, dtype=torch.int64).to(dev)
+    if m.shape != (len(mesh.ranks),):
+        raise ValueError(f"m must hold the {len(mesh.ranks)} sizes of the "
+                         f"ranks held here, got shape {tuple(m.shape)}")
+    D = p.bit_length() - 1
+    zeros = np.zeros(p, np.int32)
+    ones = np.ones(p, np.int32)
+    rounds = step_tensors(
+        [(tuple((i, i ^ (1 << d)) for i in range(p)), 1, zeros, zeros, ones)
+         for d in range(D)], p, dev, mesh.ranks)
+    r = torch.tensor(mesh.ranks, dtype=torch.int64).to(dev)
+    est = torch.zeros_like(m)
+    m_groot, groot, total = m, r, m
+    for d in range(D):
+        state = torch.stack([est, m_groot, groot, total], 1)[:, None]
+        o_est, o_mg, o_gr, o_tot = mesh.ppermute(state, rounds, d)[:, 0].unbind(1)
+        my_lower = (r & (1 << d)) == 0
+        lo_est = torch.where(my_lower, est, o_est)
+        hi_est = torch.where(my_lower, o_est, est)
+        lo_tot = torch.where(my_lower, total, o_tot)
+        hi_tot = torch.where(my_lower, o_tot, total)
+        lower_sends = torch.where(
+            lo_est != hi_est, lo_est < hi_est,
+            torch.where(lo_tot != hi_tot, lo_tot < hi_tot, True))
+        take_theirs = torch.where(my_lower, lower_sends, ~lower_sends)
+        total = total + o_tot
+        groot = torch.where(take_theirs, o_gr, groot)
+        m_groot = torch.where(take_theirs, o_mg, m_groot)
+        est = total - m_groot
+    return est, groot, total

@@ -1,0 +1,35 @@
+"""The tuner of the port: calibration, candidates and selection.
+
+The port's copy of ``repro.tuner``'s first three stages, which pick a
+collective's schedule as a function of the machine's (α, β) and the size
+vector (the paper's crossover):
+
+* :mod:`~repro_torch.tuner.calibrate` — fit (α, β) per mesh axis from
+  exchange micro-measurements (``MeshTimingBackend`` times the port's
+  ``mesh.ppermute``; deterministic synthetic backends for device-free
+  tests), plus the online refit loop;
+* :mod:`~repro_torch.tuner.candidates` — the schedule space behind one
+  :class:`Candidate` interface, its dataplane view lowered through the
+  port's own planners;
+* :mod:`~repro_torch.tuner.select` — model-guided argmin with optional
+  measured racing and hysteresis;
+* :mod:`~repro_torch.tuner.cache` — the persistent, versioned, LRU plan
+  cache and its keys (``mesh_fingerprint`` of the port's meshes);
+* :mod:`~repro_torch.tuner.classifier` — the serving signature classes.
+
+Not yet ported: the planner service (``PlannerService``, ``PlanRecord``)
+and the serving planner (``ServingPlanner``, ``SignaturePredictor``),
+which stand on these stages.
+"""
+from .cache import (CACHE_VERSION, PlanCache, PlanKey,  # noqa: F401
+                    mesh_fingerprint, quantize_matrix, quantize_sizes)
+from .classifier import SignatureClassifier  # noqa: F401
+from .calibrate import (Calibration, HierarchicalCalibration,  # noqa: F401
+                        HierarchicalOnlineCalibrator, MeshTimingBackend,
+                        OnlineCalibrator, SyntheticHierarchicalBackend,
+                        SyntheticTimingBackend, calibrate, calibrate_axes,
+                        fit_alpha_beta, flat_weights, hierarchical_weights)
+from .candidates import (Candidate, OPS,  # noqa: F401
+                         enumerate_candidates, plan_pipeline_cost,
+                         plan_step_cost)
+from .select import Selection, argmin_name, select  # noqa: F401

@@ -121,13 +121,11 @@ def test_carry_round_trip_keeps_tables(name):
         np.testing.assert_array_equal(tabs.gather.send_start[k].numpy(), ss)
         np.testing.assert_array_equal(tabs.gather.recv_start[k].numpy(), rs)
         np.testing.assert_array_equal(tabs.gather.recv_valid[k].numpy(), rv)
-        src_of = np.full(tp.p, -1, np.int32)
-        for s, d in perm:
-            src_of[d] = s
-        np.testing.assert_array_equal(tabs.gather.src_of[k].numpy(), src_of)
+        assert tabs.gather.recv_dst[k].tolist() == [d for _, d in perm]
+        assert tabs.gather.recv_src[k].tolist() == [s for s, _ in perm]
     one = carry.plan_tensors(tp, "cpu", ranks=(5,))
     np.testing.assert_array_equal(one.gather.recv_valid.numpy()[:, 0],
                                   tabs.gather.recv_valid.numpy()[:, 5])
     assert one.offsets.tolist() == [tp.offsets[5]]
-    assert tabs.gather.send_start.dtype == tabs.scatter.src_of.dtype == \
-        torch.int32
+    assert tabs.gather.send_start.dtype == torch.int32
+    assert tabs.scatter.recv_dst[0].dtype == torch.int64

@@ -10,8 +10,15 @@ bitwise against ``np.concatenate`` and the input blocks.  The reduce lane
 sweeps reduce_scatterv/allreducev over every distribution × fp32/int32 ×
 segments {1, 4} × bucket {1, 2}, holding every rank's result bitwise
 against the port's NumPy executors (the fold order is the plan's, so the
-tolerance is 0) and S = 4 against S = 1.  Rank 0 prints the line the test
-looks for.
+tolerance is 0) and S = 4 against S = 1.  The host lane splits the 8 ranks
+into 2 emulated hosts of 4 (the counterpart of
+``tests/multidevice/child_multihost.py``): the host split given and
+gathered from host ids, bad ids refused on every rank, the topology and
+the plan-cache fingerprint; rooted, allgatherv and alltoallv on the flat
+and the two-level trees, bitwise; the Lemma-3 metadata exchange agreed on
+every rank; and ``calibrate_axes`` over the intra-host and inter-host
+subgroups giving finite positive fits, the same on every rank.  Rank 0
+prints the line the test looks for.
 """
 import os
 import signal
@@ -102,6 +109,107 @@ def _reduce_lane(rank: int, mesh) -> str:
     return f"{n} cases x {WORLD} ranks: PROCESS GROUP REDUCE LANE PASSED"
 
 
+def _rooted(mesh, rank, tree_of) -> None:
+    import repro_torch as rt
+
+    rng = np.random.default_rng(7)
+    sizes = [int(s) for s in rng.integers(0, 30, WORLD)]
+    sizes[3] = 0       # a zero block stays legal across the host boundary
+    root = 5
+    blocks = [rng.standard_normal((s, 3)).astype(np.float32) for s in sizes]
+    want = np.concatenate(blocks)
+    got, _ = rt.run_gatherv(mesh, blocks, root, tree=tree_of(sizes, root))
+    if rank == root:
+        np.testing.assert_array_equal(got, want)
+    outs, _ = rt.run_scatterv(mesh, want, sizes, root,
+                              tree=tree_of(sizes, root))
+    np.testing.assert_array_equal(outs[rank], blocks[rank])
+
+
+def _allgatherv(mesh, rank, tree_of) -> None:
+    import repro_torch as rt
+    from repro_torch.core.composed import allgatherv_schedule
+
+    rng = np.random.default_rng(11)
+    sizes = [int(s) for s in rng.integers(1, 25, WORLD)]
+    blocks = [rng.standard_normal((s, 2)).astype(np.float32) for s in sizes]
+    sched = allgatherv_schedule(sizes, root=0, tree=tree_of(sizes, 0))
+    out, _ = rt.run_allgatherv(mesh, blocks, root=0, schedule=sched)
+    assert out.shape == (1, sum(sizes), 2)
+    np.testing.assert_array_equal(out[0], np.concatenate(blocks))
+
+
+def _alltoallv(mesh, rank, schedule_of) -> None:
+    import repro_torch as rt
+
+    rng = np.random.default_rng(13)
+    S = rng.integers(0, 9, (WORLD, WORLD))
+    ab = [[rng.standard_normal((int(S[i, j]), 2)).astype(np.float32)
+           for j in range(WORLD)] for i in range(WORLD)]
+    got, _ = rt.run_alltoallv(mesh, ab, schedule=schedule_of(S))
+    np.testing.assert_array_equal(
+        got[rank], np.concatenate([ab[i][rank] for i in range(WORLD)]))
+
+
+def _host_lane(rank: int) -> str:
+    import torch.distributed as dist
+
+    import repro_torch as rt
+    from repro_torch import tuner as tt
+    from repro_torch.core.baselines import two_level_tree
+    from repro_torch.core.composed import alltoallv_schedule
+    from repro_torch.core.costmodel import HostTopology
+    from repro_torch.core.distributions import block_sizes
+    from repro_torch.core.treegather import build_gather_tree
+
+    hosts, D = 2, WORLD // 2
+    mesh = rt.ProcessGroupMesh(device="cpu", hosts=hosts)
+    topo = HostTopology.from_mesh(mesh)
+    assert (topo.hosts, topo.devices_per_host) == (hosts, D), topo
+    fp = tt.mesh_fingerprint(mesh)
+    assert fp == f"cpu[gloo,p={WORLD}]|hosts={hosts}x{D}", fp
+    assert tt.mesh_fingerprint(mesh, HostTopology(1, WORLD)) != fp
+    # the same split from host ids each rank reports; bad ids refused
+    named = rt.ProcessGroupMesh(device="cpu", host_id=f"node{rank // D}")
+    assert HostTopology.from_mesh(named) == topo
+    assert tt.mesh_fingerprint(named) == fp
+    flat = rt.ProcessGroupMesh(device="cpu", host_id="one-box")
+    assert HostTopology.from_mesh(flat) == HostTopology(1, WORLD)
+    for bad in (f"n{rank % 2}", f"n{int(rank >= 2)}"):
+        try:
+            rt.ProcessGroupMesh(device="cpu", host_id=bad)
+        except ValueError as e:
+            assert "consecutive" in str(e) or "equal" in str(e), e
+        else:
+            raise AssertionError(f"host ids {bad!r} were accepted")
+    flat_tree = lambda m, r: None     # noqa: E731  (the default TUW tree)
+    two_level = lambda m, r: two_level_tree(m, r, D)     # noqa: E731
+    for tree_of in (flat_tree, two_level):
+        _rooted(mesh, rank, tree_of)
+        _allgatherv(mesh, rank, tree_of)
+    _alltoallv(mesh, rank, alltoallv_schedule)
+    _alltoallv(mesh, rank, lambda S: alltoallv_schedule(
+        S, tree_builder=lambda row, r: two_level_tree(row, r, D)))
+    for seed in range(5):
+        sizes = block_sizes("random", WORLD, 100, seed=seed)
+        root = build_gather_tree(sizes).root
+        est, groot, total = rt.tree_metadata_exchange([sizes[rank]], mesh)
+        assert (groot.item(), total.item(), est.item()) == \
+            (root, sum(sizes), sum(sizes) - sizes[root])
+    fits = tt.calibrate_axes({a: tt.MeshTimingBackend(mesh, a)
+                              for a in ("device", "host")},
+                             sizes=(4096, 65536, 1 << 20), repeats=3)
+    for f in fits.values():
+        assert np.isfinite([f.alpha_s, f.beta_s_per_byte]).all()
+        assert f.alpha_s >= 0 and f.beta_s_per_byte > 0
+    assert fits["host"].backend == f"mesh(cpu,p={hosts},axis=host)"
+    every = [None] * WORLD
+    dist.all_gather_object(every, {a: (f.alpha_s, f.beta_s_per_byte)
+                                   for a, f in fits.items()})
+    assert all(e == every[0] for e in every), every
+    return (f"2x{D} hosts, fits {every[0]}: PROCESS GROUP HOST LANE PASSED")
+
+
 def _worker(rank: int, init_file: str, lane: str) -> None:
     from datetime import timedelta
 
@@ -113,9 +221,14 @@ def _worker(rank: int, init_file: str, lane: str) -> None:
                             rank=rank, world_size=WORLD,
                             timeout=timedelta(seconds=60))
     try:
-        mesh = rt.ProcessGroupMesh(device="cpu")
-        assert mesh.ranks == (rank,) and mesh.p == WORLD
-        line = (_reduce_lane if lane == "reduce" else _gather_lane)(rank, mesh)
+        if lane == "host":
+            line = _host_lane(rank)
+        else:
+            mesh = rt.ProcessGroupMesh(device="cpu")
+            assert mesh.ranks == (rank,) and mesh.p == WORLD
+            assert mesh.hosts == 1
+            line = (_reduce_lane if lane == "reduce"
+                    else _gather_lane)(rank, mesh)
         dist.barrier()
         if rank == 0:
             print(line, flush=True)
@@ -147,6 +260,11 @@ def test_process_group_mesh_gloo_lane(child_env, tmp_path):
 def test_process_group_mesh_gloo_reduce_lane(child_env, tmp_path):
     assert "PROCESS GROUP REDUCE LANE PASSED" in _run_lane(child_env, tmp_path,
                                                            "reduce")
+
+
+def test_process_group_mesh_gloo_host_lane(child_env, tmp_path):
+    assert "PROCESS GROUP HOST LANE PASSED" in _run_lane(child_env, tmp_path,
+                                                         "host")
 
 
 if __name__ == "__main__":
