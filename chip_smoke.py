@@ -140,10 +140,38 @@ Phases, in order; any failure raises and the exit code is nonzero:
    the races feed ``OnlineCalibrator``s seeded with (b)'s fit; one line a
    problem with the model's and the measured argmin, Kendall's tau, each
    candidate's model and measured time and the refit (the agreement is a
-   finding, not a gate); K1–K5 must have been launched.
+   finding, not a gate); K1–K5 must have been launched;
+11. the planner service and the serving planner on the card: (a)
+   ``PlannerService(mesh=LocalMesh(16), calibration=<10b's fit>,
+   quantum=1)`` runs the six ops on the six distributions at b=2048 rows
+   of 1 KiB (``SERVICE_F``), root 0, each called ``SERVICE_CALLS`` times
+   with fresh data: the first call builds the executor and captures its
+   CUDA graph (a miss), the others replay it (hits); every result bitwise
+   (byte moves against ``np.concatenate``, reductions' first ``ORACLE_F``
+   columns against the NumPy executors on the same plan, and all against
+   ``run_*`` lowering the same plan); every replay must add the launches
+   its capture recorded, and the captures and the replays must each have
+   launched K1–K5; each executor's replay bitwise its eager body (the
+   ``*_shard`` call on the same tables and static input) and both timed
+   on the card; per problem the capture, call, replay and ``run_*``
+   times, the executor's bytes and the launches a replay adds; after
+   each problem the device memory held must match what the kept
+   executors account for and stay within their bound; the residual
+   ledgers and the guideline monitor; one replay under
+   ``torch.profiler``; (b) yi-6b
+   (phase 7's weights and requests) served without and with a plan-only
+   ``ServingPlanner`` on ``--experts 4``'s routing, the tokens those of
+   phase 7b; a ``ServingPlanner`` on a mesh service over
+   ``LocalMesh(8)`` driven through ``serve_trace(8, 64)`` by ``dispatch``
+   (bf16 rows of 4096, carried as int16 bits) and ``combine`` (fp32 rows
+   of 4096), each step bitwise (the dispatch against ``np.concatenate``,
+   the combine against a plan-only twin's NumPy path, the classes the
+   twin's), with the captures after the first 16 steps; (c) a capture that
+   synchronises the device raises, and the launch counts come back; K1–K5
+   and K8 must have been launched.
 
 The line before the last is a JSON object with one entry per kernel
-(K1–K9), launches counted over phases 3, 5–10; the last is
+(K1–K9), launches counted over phases 3, 5–11; the last is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -154,6 +182,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -208,6 +237,19 @@ RACE_REPS = 3          # phase 10: CUDA-event median per raced candidate
 # phase 10's NumPy check of each raced reduction: 16-byte rows (at F=16 the
 # checks of the 60 reduction candidates kept the phase near two minutes)
 RACE_ORACLE_F = 4
+# phase 11a: the planner service at 1 KiB fp32 rows (at 4 KiB rows the
+# reductions' host copies, p x total x F in and out, reach 3.2 GiB a call)
+SERVICE_F, SERVICE_CALLS, SERVICE_ROOT = 256, 3, 0
+SERVICE_KERNELS = ("slab_extract", "slab_merge", "slab_step",
+                   "slab_merge_add", "slab_step_reduce")
+# the device memory held after a problem may differ from what the kept
+# executors account for by this much (allocator segments round up)
+HELD_SLACK = 1 << 30
+REPLAY_ROUNDS, REPLAY_REPS = 3, 3   # replay against eager body, in turns
+# phase 11b: --experts 4's routing of the served tokens, and the serving
+# planner on LocalMesh(MOE_P) over the diurnal trace at Mixtral's d_model
+SERVE_EXPERTS, SERVE_TOP_K, SERVE_CLASS_BOUND = 4, 2, 0.25
+MOE_TRACE_STEPS, MOE_D_MODEL, MOE_WARMUP_STEPS = 64, 4096, 16
 CSRC = "src/repro_torch/kernels/ragged_gather/csrc/"
 SOURCES = {"slab_extract": CSRC + "slab.cu", "slab_merge": CSRC + "slab.cu",
            "slab_step": CSRC + "slab.cu",
@@ -1279,6 +1321,7 @@ def serve_main(dev, ctx: dict) -> dict:
         if toks.shape != (SERVE_GEN + 1,) or toks.min() < 0 \
                 or toks.max() >= cfg.vocab:
             raise AssertionError(f"served tokens out of range: {toks}")
+    ctx["tokens"] = res["tokens"]
     n_batches = len(res["prefill_s"])
     prefill_ms = [1e3 * x for x in res["prefill_s"]]
     decode_ms = 1e3 * sum(res["decode_s"]) / (n_batches * SERVE_GEN)
@@ -2085,6 +2128,438 @@ def tuner_path(dev) -> dict:
             "refit_all": dataclasses.asdict(fit)}
 
 
+# ---------------------------------------------------------------- phase 11
+
+SERVICE_OPS = ("gatherv", "scatterv", "allgatherv", "alltoallv",
+               "reduce_scatterv", "allreducev")
+
+
+def _on_host(g, shape, dev, dtype=torch.float32) -> np.ndarray:
+    """Fresh normal numbers made on the card from ``g``, on the host (the
+    service takes numpy); bf16 comes back as its bits in int16."""
+    t = torch.randn(shape, generator=g, device=dev, dtype=dtype)
+    return (t.view(torch.int16) if dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def _split(rows: np.ndarray, sizes) -> list:
+    return np.split(rows, np.cumsum(sizes)[:-1])
+
+
+def service_inputs(op: str, sizes: list, S: list, g, dev):
+    """One call's fresh arguments of ``op`` and the result it must give
+    (byte moves: ``np.concatenate`` and the blocks; reductions: the
+    contributions, held to the NumPy executors by the caller)."""
+    if op in ("gatherv", "scatterv", "allgatherv"):
+        data = _on_host(g, (sum(sizes), SERVICE_F), dev)
+        blocks = _split(data, sizes)
+        if op == "gatherv":
+            return (blocks, SERVICE_ROOT), data
+        if op == "scatterv":
+            return (data, sizes, SERVICE_ROOT), blocks
+        return (blocks,), data
+    if op == "alltoallv":
+        flat = _split(_on_host(g, (sum(map(sum, S)), SERVICE_F), dev),
+                      [s for row in S for s in row])
+        blocks = [flat[i * P:(i + 1) * P] for i in range(P)]
+        return (blocks,), [np.concatenate([blocks[i][j] for i in range(P)])
+                           for j in range(P)]
+    contribs = list(_on_host(g, (P, sum(sizes), SERVICE_F), dev))
+    return (contribs, sizes), contribs
+
+
+def check_service(op: str, got, want, plan) -> None:
+    """Bitwise: byte moves against ``want``; reductions' first
+    ``ORACLE_F`` columns against the NumPy executors on the same plan
+    (``want`` holds the contributions; quantum 1, so the plan's offsets
+    are the true ones)."""
+    from repro_torch.core import pipeline
+
+    if op == "reduce_scatterv":
+        want = pipeline.execute_reduce_scatterv_plan_numpy(
+            plan, [c[:, :ORACLE_F] for c in want])
+        got = [b[:, :ORACLE_F] for b in got]
+    elif op == "allreducev":
+        want = np.stack(pipeline.execute_allreducev_plan_numpy(
+            plan, [c[:, :ORACLE_F] for c in want]))
+        got = got[:, :, :ORACLE_F]
+    elif op == "allgatherv":
+        want = np.stack([want] * P)
+    if isinstance(want, list):
+        _check_blocks(f"service {op}", got, want)
+    elif not _same_bits(np.asarray(got), want):
+        raise AssertionError(f"service {op} differs from its oracle")
+
+
+def run_kwargs(op: str, algo: str) -> dict:
+    """``run_*``'s arguments that lower the service's plan again: the
+    reductions' schedule family and its bucket rounds, segments and wave
+    bins, parsed from the candidate's name (``halving_reduce(S=2)``,
+    ``tuw_reduce(b=1,g2)``, ...).  The byte moves' results do not depend
+    on the plan, so they take none."""
+    from repro_torch.core import composed
+
+    if op not in ("reduce_scatterv", "allreducev"):
+        return {}
+    family, _, opts = algo.partition("(")
+    kw = {}
+    for opt in filter(None, opts.rstrip(")").split(",")):
+        if opt.startswith("b="):
+            kw["bucket_rounds"] = int(opt[2:])
+        elif opt.startswith("S="):
+            kw["segments"] = int(opt[2:])
+        elif opt.startswith("g"):
+            kw["wave_bin_ratio"] = float(opt[1:])
+        else:
+            raise ValueError(f"candidate {algo}: option {opt}")
+    schedule = {"tuw_reduce": None,
+                "halving_reduce": composed.reduce_scatterv_halving_schedule,
+                "direct_reduce": composed.reduce_scatterv_direct_schedule}
+    if family not in schedule:
+        raise ValueError(f"candidate {algo}: no run_{op} lowers it")
+    return {**kw, "schedule_fn": schedule[family]}
+
+
+def run_same_plan(mesh, op: str, algo: str, args):
+    """``run_*`` on ``args``, lowering the service's plan again."""
+    import repro_torch as rt
+
+    kw = run_kwargs(op, algo)
+    fn = kw.pop("schedule_fn", None)
+    if fn is not None:
+        kw["schedule" if op == "reduce_scatterv" else "rs_schedule"] = fn(
+            list(args[1]))
+    return getattr(rt, "run_" + op)(mesh, *args, **kw)
+
+
+def service_path(dev, cal) -> dict:
+    """Phase 11a: the planner service on ``LocalMesh(16)`` with the card's
+    calibration, the six ops on the six distributions, each called
+    ``SERVICE_CALLS`` times with fresh data: the first builds and
+    captures the executor (a miss), the others replay it (hits).  Each
+    result is held bitwise to its oracle and to ``run_*`` on the same
+    plan; each replay must add the launches its capture recorded; each
+    executor's replay is held bitwise to, and timed against, its eager
+    body on the same tables and static input; after each problem the
+    device memory held must be what the executors account for, within
+    the bound."""
+    import repro_torch as rt
+    from repro_torch import tuner as tt
+    from repro_torch.core.distributions import NAMES, block_sizes
+    from repro_torch.kernels import backend
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.tuner import service
+
+    mesh = rt.LocalMesh(P, device=dev)
+    # drift refits off: a refit bumps the epoch and replans, so a call of
+    # the same problem would capture again (the ledgers are printed)
+    svc = tt.PlannerService(mesh=mesh, quantum=1, calibration=cal,
+                            auto_refit=False)
+    cap = svc.max_executor_bytes
+    prev = obs_trace.current()
+    rec = obs_trace.enable(obs_trace.TraceRecorder())
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows, most_bytes, most_held = [], 0, 0
+    captured, replayed = Counter(), Counter()
+    try:
+        for name in NAMES:
+            sizes = block_sizes(name, P, B, seed=SEED)
+            S = [block_sizes(name, P, A2A_B, seed=i) for i in range(P)]
+            for op in SERVICE_OPS:
+                walls, replays = [], []
+                for call in range(SERVICE_CALLS):
+                    args, want = service_inputs(op, sizes, S, g, dev)
+                    before = dict(backend.LAUNCHES)
+                    t0 = time.perf_counter()
+                    got, plan = getattr(svc, op)(*args)
+                    walls.append(time.perf_counter() - t0)
+                    added = {k: n - before[k]
+                             for k, n in backend.LAUNCHES.items()
+                             if n != before[k]}
+                    ex = next(reversed(svc._compiled.values()))
+                    span = rec.spans(cat="collective",
+                                     name_prefix="exec/" + op)[-1]
+                    if span.args["fresh_compile"] != (call == 0):
+                        raise AssertionError(f"{op} {name} call {call}: "
+                                             f"fresh {span.args}")
+                    if call == 0:
+                        captured.update(ex.launches)
+                    else:
+                        replays.append(span.args["measured_s"])
+                        if not ex.launches or added != ex.launches:
+                            raise AssertionError(
+                                f"{op} {name}: a replay added {added}, its "
+                                f"capture recorded {ex.launches}")
+                        replayed.update(added)
+                    check_service(op, got, want, plan)
+                algo = svc.plan_record(op, plan_arg(op, args), root=(
+                    SERVICE_ROOT if op in ("gatherv", "scatterv") else None),
+                    row_bytes=SERVICE_F * 4).algo
+                t0 = time.perf_counter()
+                ran, ran_plan = run_same_plan(mesh, op, algo, args)
+                run_s = time.perf_counter() - t0
+                if run_kwargs(op, algo) and len(ran_plan.steps) != len(
+                        plan.steps):
+                    raise AssertionError(f"run_{op} {name} lowered "
+                                         f"another plan than {algo}")
+                if isinstance(got, list):
+                    _check_blocks(f"run_{op} {name}", ran, got)
+                elif not _same_bits(np.asarray(ran), np.asarray(got)):
+                    raise AssertionError(f"run_{op} {name} differs")
+                eager = replay_against_eager(ex, g, dev)
+                row = {"op": op, "dist": name, "algo": algo,
+                       "steps": len(plan.steps),
+                       "capture_ms": ex.build_s * 1e3,
+                       "replay_ms": float(np.median(replays)) * 1e3,
+                       "call_ms": float(np.median(walls[1:])) * 1e3,
+                       "first_call_ms": walls[0] * 1e3,
+                       "run_ms": run_s * 1e3, **eager,
+                       "executor_bytes": ex.nbytes,
+                       "replay_launches": dict(ex.launches)}
+                rows.append(row)
+                del ex, ran, got
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+                held = torch.cuda.memory_reserved(dev) - base
+                most_bytes = max(most_bytes, svc.executor_bytes)
+                most_held = max(most_held, held)
+                if (abs(held - svc.executor_bytes) > HELD_SLACK
+                        or held > cap + HELD_SLACK):
+                    raise AssertionError(
+                        f"after {op} {name}: {held} B of device memory held "
+                        f"over the phase's start, the executors account "
+                        f"for {svc.executor_bytes} B, bound {cap} B")
+                log(f"  (a) {op:15s} {name:11s} {algo:22s} capture "
+                    f"{row['capture_ms']:9.3f} ms, call "
+                    f"{row['call_ms']:8.3f} ms (its replay "
+                    f"{row['replay_ms']:8.3f}), run_{op} "
+                    f"{row['run_ms']:8.3f} ms; on the card replay "
+                    f"{row['replay_device_ms']:7.3f} ms, eager body "
+                    f"{row['eager_device_ms']:7.3f} ms; executor "
+                    f"{row['executor_bytes']} B, held {held} B; a replay launches "
+                    f"{row['replay_launches']}")
+    finally:
+        obs_trace.enable(prev) if prev is not None else obs_trace.disable()
+    for what, counts in (("captures", captured), ("replays", replayed)):
+        missing = [k for k in SERVICE_KERNELS if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"the service's {what} never launched "
+                                 f"{missing}: {dict(counts)}")
+    st = svc.stats
+    peak = torch.cuda.max_memory_reserved(dev) - base
+    total = torch.cuda.get_device_properties(dev).total_memory
+    log(f"  (a) executors: {st['compiled_misses']} captures recorded "
+        f"{dict(captured)}, {st['compiled_hits']} replays launched "
+        f"{dict(replayed)}; {svc.cache_size} kept, at most {most_bytes} B "
+        f"accounted and {most_held} B held after a problem (bound {cap} B, "
+        f"{service.EXECUTOR_MEMORY_SHARE} of {total} B; slack "
+        f"{HELD_SLACK} B); evictions "
+        f"{st['metrics']['counters'].get('compiled_lru_evictions', 0)}; "
+        f"peak reserved {peak} B over the phase's start; plans "
+        f"{st['misses']} misses, {st['hits']} hits")
+    log(f"  (a) calibration {cal.alpha_s * 1e6:.3f} us, "
+        f"{cal.beta_s_per_byte * 1e12:.4f} ps/B ({cal.backend}); residual "
+        f"ledgers: " + json.dumps(st["residuals"]))
+    log("  (a) guideline monitor: " + json.dumps(
+        {k: v for k, v in st["guidelines"].items()
+         if k != "recent_violations"}))
+    out = {"rows": rows, "captures": st["compiled_misses"],
+           "replays": st["compiled_hits"],
+           "captured_launches": dict(captured),
+           "replayed_launches": dict(replayed),
+           "most_executor_bytes": most_bytes, "most_held_bytes": most_held,
+           "executor_bound": cap, "peak_reserved": peak,
+           "residuals": st["residuals"], "guidelines": st["guidelines"]}
+    # one replay under the profiler: its graph's kernel nodes by name
+    # (the profile's own launches are no part of the path's counts)
+    ex = next(reversed(svc._compiled.values()))
+    counted = dict(backend.LAUNCHES)
+    out["profile"] = _profiled(
+        f"replay of the last executor ({rows[-1]['op']} {rows[-1]['dist']}, "
+        f"a replay launches {ex.launches})", {"replay": ex.graph.replay})
+    backend.LAUNCHES.update(counted)
+    del svc, ex
+    torch.cuda.empty_cache()
+    return out
+
+
+def replay_against_eager(ex, g, dev) -> dict:
+    """The executor's replay against its eager body (the ``*_shard`` call
+    on the same tables and static input): bitwise, then both timed on the
+    card in turns (CUDA-event medians; the eager body's host launches are
+    in its window).  Neither is a launch of the main path, so the counts
+    are restored."""
+    from repro_torch.kernels import backend
+
+    counted = dict(backend.LAUNCHES)
+    ex.x.copy_(torch.randn(tuple(ex.x.shape), generator=g, device=dev))
+    ex.graph.replay()
+    replayed = ex.out.clone()
+    eager = ex._body()
+    if not torch.equal(replayed.view(torch.int32), eager.view(torch.int32)):
+        raise AssertionError("a replay differs from the eager *_shard call "
+                             "on the same tables and input")
+    del replayed, eager
+    times = {"replay": [], "eager": []}
+    for _ in range(REPLAY_ROUNDS):
+        times["replay"].append(median_ms(ex.graph.replay, REPLAY_REPS))
+        times["eager"].append(median_ms(ex._body, REPLAY_REPS))
+    backend.LAUNCHES.update(counted)
+    return {"replay_device_ms": float(np.median(times["replay"])),
+            "eager_device_ms": float(np.median(times["eager"]))}
+
+
+def plan_arg(op: str, args) -> list:
+    if op == "alltoallv":
+        return [[len(b) for b in row] for row in args[0]]
+    if op in ("scatterv", "reduce_scatterv", "allreducev"):
+        return list(args[1])
+    return [len(b) for b in args[0]]
+
+
+def serving_planner_path(dev, cal, yi: dict) -> dict:
+    """Phase 11b: (1) yi-6b served with and without a plan-only serving
+    planner on ``--experts 4``'s routing, on phase 7's weights and
+    queue (``yi``), the tokens those of phase 7b;
+    (2) a serving planner on a mesh service over ``LocalMesh(MOE_P)``
+    driven through ``dispatch`` / ``combine`` by the diurnal trace, each
+    step bitwise (the dispatch against ``np.concatenate``, the combine
+    against a plan-only twin's NumPy path, the classes the twin's), the
+    captures counted after ``MOE_WARMUP_STEPS``."""
+    import repro_torch as rt
+    from repro_torch import tuner as tt
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.launch.serve_trace import serve_trace
+
+    t0 = time.perf_counter()
+    cfg = yi["cfg"]
+    runs = {}
+    for label in ("without planner", "with planner"):
+        sp = (None if label == "without planner" else tt.ServingPlanner(
+            tt.PlannerService(mesh=None, quantum=1),
+            max_overhead=SERVE_CLASS_BOUND, row_bytes=cfg.d_model * 4))
+        res = serve_requests(yi["params"], cfg, yi["queue"], SERVE_BATCH,
+                             SERVE_GEN, dev, serving=sp,
+                             experts=SERVE_EXPERTS, top_k=SERVE_TOP_K)
+        for a, b in zip(res["tokens"], yi["tokens"]):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"yi-6b {label}: tokens differ from "
+                                     f"phase 7b's")
+        runs[label] = {"decode_ms_per_step": 1e3 * sum(res["decode_s"]) / (
+            len(res["decode_s"]) * SERVE_GEN),
+            "prefill_ms": [1e3 * s for s in res["prefill_s"]],
+            "planner": sp.stats() if sp is not None else None}
+        log(f"  (b) yi-6b {label}: decode "
+            f"{runs[label]['decode_ms_per_step']:.3f} ms/step, prefill ms "
+            f"{runs[label]['prefill_ms']}; tokens equal phase 7b's"
+            + (f"; planner {sp.stats()}" if sp is not None else ""))
+    log(f"  (b) yi-6b served twice in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh = rt.LocalMesh(MOE_P, device=dev)
+    kw = dict(quantum=1, calibration=cal, max_compiled=1024)
+    on_mesh = tt.ServingPlanner(tt.PlannerService(
+        mesh=mesh, auto_refit=False, **kw), row_bytes=MOE_D_MODEL * 2)
+    twin = tt.ServingPlanner(tt.PlannerService(mesh=None, **kw),
+                             row_bytes=MOE_D_MODEL * 2)
+    trace = serve_trace(MOE_P, MOE_TRACE_STEPS, seed=SEED)
+    g = torch.Generator(device=dev).manual_seed(SEED + 50)
+    builds, hot, ms, checks_s = [], [], [], 0.0
+    for st_ in trace:
+        S, n = st_["S"], [int(v) for v in st_["n"]]
+        flat = _split(_on_host(g, (int(S.sum()), MOE_D_MODEL), dev,
+                               torch.bfloat16), S.reshape(-1))
+        blocks = [flat[i * MOE_P:(i + 1) * MOE_P] for i in range(MOE_P)]
+        contribs = list(_on_host(g, (MOE_P, sum(n), MOE_D_MODEL), dev))
+        b0 = on_mesh.compiles
+        ts = time.perf_counter()
+        recv, _ = on_mesh.dispatch(blocks)
+        summed, _ = on_mesh.combine(contribs, n)
+        ms.append((time.perf_counter() - ts) * 1e3)
+        hot.append(on_mesh.compiles - b0)
+        ts = time.perf_counter()
+        # the NumPy path: the twin plans the dispatch (its executor, a
+        # byte move, is held to np.concatenate: at these classes it
+        # copies the padded buffer once a step, seconds a step) and runs
+        # the combine's fold
+        twin.plan_step("alltoallv", S, dtype="int16",
+                       row_bytes=MOE_D_MODEL * 2)
+        want_sum, _ = twin.combine(contribs, n)
+        _check_blocks("dispatch", recv, [
+            np.concatenate([blocks[i][j] for i in range(MOE_P)])
+            for j in range(MOE_P)])
+        _check_blocks("combine", summed, want_sum)
+        if on_mesh._current != twin._current:
+            raise AssertionError("mesh and plan-only classes differ")
+        checks_s += time.perf_counter() - ts
+        on_mesh.prefetch(compile_width=MOE_D_MODEL)
+        twin.prefetch()
+        builds.append(on_mesh.compiles - b0)
+    w = MOE_WARMUP_STEPS
+    passes = {"warmup_captures": sum(builds[:w]),
+              "captures_after_warmup": sum(builds[w:]),
+              "hot_path_captures_after_warmup": sum(hot[w:]),
+              "step_ms_median": float(np.median(ms[w:])),
+              "step_ms_max": max(ms[w:])}
+    log(f"  (b) LocalMesh({MOE_P}) serving over {len(trace)} trace steps "
+        f"(bf16 dispatch and fp32 combine rows of {MOE_D_MODEL}): "
+        f"{passes['warmup_captures']} captures in the first {w} steps, "
+        f"{passes['captures_after_warmup']} after them "
+        f"({passes['hot_path_captures_after_warmup']} on the hot path); "
+        f"dispatch + combine after warm-up {passes['step_ms_median']:.3f} "
+        f"ms median, {passes['step_ms_max']:.3f} max; every step bitwise")
+    st = on_mesh.stats()
+    log(f"  (b) mesh planner: {st}; executors held "
+        f"{on_mesh.svc.executor_bytes} B; {len(trace)} steps in "
+        f"{time.perf_counter() - t0:.1f} s, {checks_s:.1f} s of them in "
+        f"the NumPy path and the checks")
+    out = {"serve": runs, "mesh": passes, "mesh_planner": st,
+           "executor_bytes": on_mesh.svc.executor_bytes}
+    del on_mesh, twin
+    torch.cuda.empty_cache()
+    return out
+
+
+def capture_failure_raises(dev) -> None:
+    """A body that synchronises the device cannot be captured: building
+    its executor on a CUDA ``LocalMesh`` must raise (there is no eager
+    fallback), and the launch counts must come back unchanged."""
+    import repro_torch as rt
+    from repro_torch.kernels import backend
+    from repro_torch.tuner import service
+
+    from repro_torch.core.carry import plan_tensors
+
+    plan = rt.plan_gatherv([3, 1, 4, 1], 0)
+    mesh = rt.LocalMesh(4, device=dev)
+    body = service._SHARD["gatherv"]
+    service._SHARD["gatherv"] = (
+        lambda *a: (torch.cuda.synchronize(), body(*a))[1])
+    backend.reset_launches()
+    try:
+        service._Executor("gatherv", plan, mesh, 4, torch.float32)
+    except RuntimeError as e:
+        log(f"  (c) a failing capture raises: {str(e).splitlines()[0]}")
+    else:
+        raise AssertionError("a capture that synchronises did not raise")
+    finally:
+        service._SHARD["gatherv"] = body
+    torch.cuda.synchronize(dev)
+    # what stays counted is the eager warm-up's launches alone
+    after = dict(backend.LAUNCHES)
+    backend.reset_launches()
+    body(torch.zeros((4, plan.cap, 4), device=dev), plan, mesh,
+         plan_tensors(plan, dev))
+    if after != backend.LAUNCHES:
+        raise AssertionError(f"launch counts {after} after a failed capture, "
+                             f"an eager call counts {backend.LAUNCHES}")
+    if float(torch.ones(4, device=dev).sum()) != 4.0:
+        raise AssertionError("the card does not compute after the failed "
+                             "capture")
+
+
 def breakdown(p: dict) -> dict:
     """A profile's device time split into K8, K9, the GEMMs and the rest."""
     by = p["device_ms_per_round"]
@@ -2266,6 +2741,8 @@ def main() -> int:
                                  lambda: serve_main(dev, ctx))
     fns, checks = serve_checks(dev, ctx)
     log(json.dumps({"serve_path": {**serving, **checks}}))
+    # phase 11b serves yi-6b again on these weights and this queue
+    yi = {k: ctx[k] for k in ("cfg", "params", "queue", "tokens")}
     prof = [_profiled(f"yi-6b {name}", {name: fn}, reps=2)
             for name, fn in fns.items()]
     for p in prof:
@@ -2314,6 +2791,29 @@ def main() -> int:
                                lambda: tuner_path(dev))
     log(json.dumps({"tuner_path": tuned}))
     log(f"  phase 10 s: {time.perf_counter() - t0:.1f}")
+
+    log("== phase 11: the planner service and the serving planner on the "
+        "card (captured per-plan executors, bitwise)")
+    from repro_torch import tuner as tt
+
+    t0 = time.perf_counter()
+    cal = tt.Calibration(**tuned["calibration"])
+    served = main_path_launches("planner service",
+                                ("slab_extract", "slab_merge", "slab_step",
+                                 "slab_merge_add", "slab_step_reduce"),
+                                lambda: service_path(dev, cal))
+    log(json.dumps({"service_path": served}))
+    log(f"  phase 11a s: {time.perf_counter() - t0:.1f}")
+    planned = main_path_launches("serving planner",
+                                 ("flash_attention", "slab_extract",
+                                  "slab_merge", "slab_step", "slab_merge_add",
+                                  "slab_step_reduce"),
+                                 lambda: serving_planner_path(dev, cal, yi))
+    log(json.dumps({"serving_planner_path": planned}))
+    del yi
+    torch.cuda.empty_cache()
+    capture_failure_raises(dev)
+    log(f"  phase 11 s: {time.perf_counter() - t0:.1f}")
     for name, n in launches.items():
         record[name]["launches"] = n
 

@@ -1248,3 +1248,56 @@ def tree_metadata_exchange(m, mesh):
         m_groot = torch.where(take_theirs, o_mg, m_groot)
         est = total - m_groot
     return est, groot, total
+
+
+# --------------------------------------------------------------------------
+# runtime-ragged planner (host-in-the-loop bucketing)
+# --------------------------------------------------------------------------
+
+class RaggedGathervPlanner:
+    """Backward-compatible shim over
+    :class:`repro_torch.tuner.PlannerService`, the port of the reference's
+    class of the same name.
+
+    The service keeps the quantum-bucketing contract but bounds both the
+    plan cache and the executor cache (LRU) and counts hits/misses.  New
+    code should use ``PlannerService`` directly — it also selects the
+    schedule (TUW vs linear, bucket rounds) per calibrated (alpha, beta)
+    and covers every op.  ``mesh`` is a port mesh (``LocalMesh`` or
+    ``ProcessGroupMesh``); ``axis_name`` is kept for the reference's
+    signature and names no mesh axis here.
+    """
+
+    def __init__(self, mesh, axis_name: str = "x", quantum: int = 128,
+                 max_plans: int = 64):
+        from repro_torch.tuner.service import PlannerService
+
+        self._svc = PlannerService(mesh=mesh, axis_name=axis_name,
+                                   quantum=quantum,
+                                   max_cached_plans=max_plans,
+                                   max_compiled=max_plans)
+        self.mesh = mesh
+        self.axis = axis_name
+        self.quantum = quantum
+
+    @property
+    def service(self):
+        return self._svc
+
+    def bucketed(self, sizes) -> tuple[int, ...]:
+        return self._svc.bucketed(sizes)
+
+    def gatherv(self, blocks: list[np.ndarray], root: int):
+        return self._svc.gatherv(blocks, root)
+
+    @property
+    def cache_size(self) -> int:
+        return self._svc.cache_size
+
+    @property
+    def hits(self) -> int:
+        return self._svc.plan_hits
+
+    @property
+    def misses(self) -> int:
+        return self._svc.plan_misses

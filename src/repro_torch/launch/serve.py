@@ -2,19 +2,24 @@
 prompts, one prefill per batch (attention on K8, the RG-LRU scan on K9),
 then greedy decode.
 
+The decode loop's MoE edges go through the serving dataplane: each
+step's top-k expert routing becomes an alltoallv dispatch and a
+reduce_scatterv combine planned through
+:class:`~repro_torch.tuner.serving.ServingPlanner` (``--experts``, 4 by
+default as in the reference; 0 turns it off), so raw per-step size
+vectors collapse onto padded signature classes and the steady-state loop
+plans nothing new.  Per-step spans feed the ``repro_torch.obs`` trace
+plane (run under ``REPRO_TORCH_TRACE=1``, or export with ``--trace-out``).
+
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-2b --reduced --device cpu --requests 8 \\
-        --prompt-len 24 --gen 16
+        --prompt-len 24 --gen 16 --experts 4
 
-Differences from the reference: the loop is
-:func:`serve_requests`, which returns the generated tokens and the
-timings; the ServingPlanner hook (``--experts > 0``) and
-``--trace-replay`` need the tuner and the serving planner (ROADMAP items
-7–8), so ``--experts`` defaults to 0 and any other value raises, as does
-``--trace-replay`` (and ``--top-k``, which only the planner reads, is
-left out); decode-step spans go to an active
-``repro_torch.obs.trace`` recorder (``TraceRecorder.save`` writes its
-Chrome trace); ``--trace-out`` waits for the serving planner.
+Differences from the reference: the loop is :func:`serve_requests`,
+which returns the generated tokens and the timings; ``--device`` and
+``--seed`` choose the device and the seed of the weights and prompts;
+``--trace-replay`` reads the port's own copy of the seeded diurnal trace
+(``launch.serve_trace``).
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ from ..core.mesh import resolve_device
 from ..models.transformer import init_cache, init_params
 from ..obs import trace as obs_trace
 from ..train.steps import make_decode_step, make_prefill_step
+from ..tuner import PlannerService, ServingPlanner
+from .serve_trace import serve_trace
 
 
 def pop_batch(queue: list, batch: int) -> list:
@@ -46,8 +53,7 @@ def route_step(tokens: np.ndarray, experts: int, top_k: int,
     experts are a hash of (token id, step, slot), so the dispatch matrix
     churns every decode step as a learned router's output does.  Returns
     ``(S, n)``: ``S[i][j]`` rows shard i sends expert j, ``n[i]`` rows
-    leaving shard i.  (The size vectors the serving planner of ROADMAP
-    item 8 will plan from.)
+    leaving shard i.
     """
     p = int(experts)
     S = np.zeros((p, p), np.int64)
@@ -67,7 +73,8 @@ def _sync(device: torch.device) -> None:
 
 
 def serve_requests(params: dict, cfg, queue: list, batch: int, gen: int,
-                   device=None) -> dict:
+                   device=None, serving: ServingPlanner | None = None,
+                   experts: int = 4, top_k: int = 2) -> dict:
     """Serve the prompts of ``queue`` (int token arrays, any lengths) in
     batches of ``batch``: left-pad each batch to its longest prompt,
     prefill it into a fresh cache of ``plen + gen`` positions, then run
@@ -77,8 +84,17 @@ def serve_requests(params: dict, cfg, queue: list, batch: int, gen: int,
     greedy tokens: the prefill's and each decode step's), ``prefill_s``
     and ``decode_s`` (per batch, the prefill and the whole decode loop,
     each ending in a device sync), ``tokens_out`` (``gen`` per request, as
-    the reference counts) and ``wall_s``.  Decode makes no host sync
-    until its batch is done."""
+    the reference counts) and ``wall_s``.
+
+    Without ``serving`` decode makes no host sync until its batch is
+    done.  With a :class:`~repro_torch.tuner.serving.ServingPlanner`, each
+    decode step routes its tokens over ``experts`` virtual shards, top
+    ``top_k`` (:func:`route_step`), and plans the step's alltoallv
+    dispatch and reduce_scatterv combine at ``d_model * 4``-byte rows,
+    then prefetches the predicted next classes, as the reference's loop
+    does.  Routing reads the step's tokens on the host: one
+    device-to-host copy of ``batch`` ints a step, which waits for the
+    step.  Planning changes no token."""
     device = resolve_device(device)
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg)
@@ -86,6 +102,7 @@ def serve_requests(params: dict, cfg, queue: list, batch: int, gen: int,
     out: list[np.ndarray] = []
     prefill_s, decode_s = [], []
     tokens_out = step_id = 0
+    row_bytes = cfg.d_model * 4
     _sync(device)
     t0 = time.perf_counter()
     while queue:
@@ -109,6 +126,12 @@ def serve_requests(params: dict, cfg, queue: list, batch: int, gen: int,
             logits, cache = decode(params, cache, {"tokens": cur})
             cur = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
             picked.append(cur)
+            if serving is not None:
+                S, n = route_step(cur.cpu().numpy(), experts, top_k, step_id)
+                serving.plan_step("alltoallv", S, row_bytes=row_bytes)
+                serving.plan_step("reduce_scatterv", [int(v) for v in n],
+                                  row_bytes=row_bytes)
+                serving.prefetch()     # off the hot path: next classes
             tr = obs_trace.current()
             if tr is not None:
                 tr.add_complete("serve/decode_step", "serving", t_step,
@@ -123,6 +146,30 @@ def serve_requests(params: dict, cfg, queue: list, batch: int, gen: int,
             "tokens_out": tokens_out, "wall_s": time.perf_counter() - t0}
 
 
+def _queue(args, cfg, rng) -> list:
+    """The request queue: ragged prompt lengths (the irregular scatter
+    pattern), from the diurnal trace's admissions with ``--trace-replay``
+    (clamped to the demo's prompt cap) or drawn from ``rng``."""
+    if not args.trace_replay:
+        return [rng.integers(
+            0, cfg.vocab,
+            rng.integers(args.prompt_len // 2, args.prompt_len + 1)).astype(
+                np.int32) for _ in range(args.requests)]
+    plens: list[int] = []
+    for step in serve_trace(max(2, args.experts or 4), steps=64, seed=0,
+                            base_qps=max(1.0, args.requests / 8),
+                            prompt_len_range=(max(1, args.prompt_len // 2),
+                                              args.prompt_len)):
+        plens.extend(int(x) for x in step["prompt_lens"])
+        if len(plens) >= args.requests:
+            break
+    if not plens:
+        plens = [args.prompt_len]
+    plens = plens * (1 + args.requests // len(plens))
+    return [rng.integers(0, cfg.vocab, n).astype(np.int32)
+            for n in plens[: args.requests]]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="recurrentgemma-2b")
@@ -131,21 +178,21 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=24)
     ap.add_argument("--gen", type=int, default=16)
-    ap.add_argument("--experts", type=int, default=0,
+    ap.add_argument("--experts", type=int, default=4,
                     help="virtual MoE shard/expert count for the "
-                         "dispatch/combine planning (0 = off; planning is "
-                         "ROADMAP item 8)")
+                         "dispatch/combine planning (0 = off)")
+    ap.add_argument("--top-k", type=int, default=2)
+    ap.add_argument("--class-bound", type=float, default=0.25,
+                    help="signature-class padding overhead bound")
     ap.add_argument("--trace-replay", action="store_true",
-                    help="prompt lengths from the diurnal serving trace "
-                         "(ROADMAP item 8)")
+                    help="draw request arrivals from the seeded diurnal "
+                         "trace (launch.serve_trace)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the obs trace (Chrome-trace JSON) here")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.experts or args.trace_replay:
-        raise NotImplementedError(
-            "--experts > 0 and --trace-replay need the tuner's serving "
-            "planner and its trace, ROADMAP item 8")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -157,14 +204,34 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     params = init_params(
         cfg, torch.Generator(device=device).manual_seed(args.seed), device)
-    queue = [rng.integers(
-        0, cfg.vocab,
-        rng.integers(args.prompt_len // 2, args.prompt_len + 1)).astype(
-            np.int32) for _ in range(args.requests)]
-    res = serve_requests(params, cfg, queue, args.batch, args.gen, device)
+
+    recorder = None
+    if args.trace_out is not None and obs_trace.current() is None:
+        recorder = obs_trace.enable(obs_trace.TraceRecorder())
+    queue = _queue(args, cfg, rng)
+    serving = None
+    if args.experts > 0:
+        svc = PlannerService(mesh=None, quantum=1)
+        serving = ServingPlanner(svc, max_overhead=args.class_bound,
+                                 row_bytes=cfg.d_model * 4)
+    res = serve_requests(params, cfg, queue, args.batch, args.gen, device,
+                         serving=serving, experts=args.experts,
+                         top_k=args.top_k)
     print(f"served {len(res['tokens'])} requests, {res['tokens_out']} "
           f"tokens, {res['tokens_out'] / res['wall_s']:.1f} tok/s on "
           f"{device}")
+    if serving is not None:
+        st = serving.stats()
+        print(f"planner: {st['classes']} signature classes over "
+              f"{st['steps']} plan steps, {st['plan_hits']} hits / "
+              f"{st['plan_misses']} misses, {st['compiles']} compiles, "
+              f"prefetch {st['prefetch_hits']}/{st['prefetch_planned']}, "
+              f"padding overhead <= {st['overhead_max']:.3f} "
+              f"(bound {st['overhead_bound']})")
+    if recorder is not None:
+        path = recorder.save(args.trace_out)
+        obs_trace.disable()
+        print(f"trace written to {path}")
     return 0
 
 

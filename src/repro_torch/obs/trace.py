@@ -17,7 +17,8 @@ consumer (``chrome://tracing``, Perfetto) opens directly.
   :func:`stage_breakdown` alone.
 
 The module-level recorder is controlled by :func:`enable` /
-:func:`disable`.
+:func:`disable`.  ``REPRO_TORCH_TRACE=1`` (anything non-empty except
+``"0"``) turns it on at import, as ``REPRO_TRACE`` does for the reference.
 """
 from __future__ import annotations
 
@@ -297,3 +298,9 @@ def stage_breakdown(plan, params) -> list[dict]:
                     "wave_payloads": payloads,
                     "predicted_s": alpha_term + port + spill})
     return out
+
+
+# REPRO_TORCH_TRACE=1 (anything non-empty except "0") forces tracing on at
+# import, the port's counterpart of the reference's REPRO_TRACE.
+if os.environ.get("REPRO_TORCH_TRACE", "0") not in ("", "0"):
+    enable()

@@ -1,8 +1,9 @@
-"""The tuner of the port: calibration, candidates and selection.
+"""The tuner of the port: calibration, candidates, selection, the planner
+service and the serving planner.
 
-The port's copy of ``repro.tuner``'s first three stages, which pick a
-collective's schedule as a function of the machine's (α, β) and the size
-vector (the paper's crossover):
+The port's copy of ``repro.tuner``, which picks a collective's schedule
+as a function of the machine's (α, β) and the size vector (the paper's
+crossover):
 
 * :mod:`~repro_torch.tuner.calibrate` — fit (α, β) per mesh axis from
   exchange micro-measurements (``MeshTimingBackend`` times the port's
@@ -15,11 +16,15 @@ vector (the paper's crossover):
   measured racing and hysteresis;
 * :mod:`~repro_torch.tuner.cache` — the persistent, versioned, LRU plan
   cache and its keys (``mesh_fingerprint`` of the port's meshes);
-* :mod:`~repro_torch.tuner.classifier` — the serving signature classes.
-
-Not yet ported: the planner service (``PlannerService``, ``PlanRecord``)
-and the serving planner (``ServingPlanner``, ``SignaturePredictor``),
-which stand on these stages.
+* :mod:`~repro_torch.tuner.service` — :class:`PlannerService`, the six
+  ops' serving front end (plan cache, per-plan executors captured as CUDA
+  graphs on one card, telemetry, drift refits and link health), and the
+  ``RaggedGathervPlanner`` shim over it in ``core.torch_collectives``;
+* :mod:`~repro_torch.tuner.classifier` / :mod:`~repro_torch.tuner.serving`
+  — the decode-time layer: raw per-step size vectors map onto bounded
+  padded signature classes, predicted next classes are planned (and
+  their executors built) off the hot path, and the steady-state serving
+  loop builds no new plan or executor.
 """
 from .cache import (CACHE_VERSION, PlanCache, PlanKey,  # noqa: F401
                     mesh_fingerprint, quantize_matrix, quantize_sizes)
@@ -33,3 +38,5 @@ from .candidates import (Candidate, OPS,  # noqa: F401
                          enumerate_candidates, plan_pipeline_cost,
                          plan_step_cost)
 from .select import Selection, argmin_name, select  # noqa: F401
+from .service import PlanRecord, PlannerService  # noqa: F401
+from .serving import ServingPlanner, SignaturePredictor  # noqa: F401

@@ -79,6 +79,17 @@ for t in (opttrees.optimal_gather_tree(m, 1, qdr.alpha, qdr.beta),
 assert guidelines.evaluate(m, 1, qdr).padded_rhs_time > 0
 assert guidelines_monitor.GuidelineMonitor().check("gatherv", m, 1.0, qdr)
 assert not residuals.ResidualLedger().record("gatherv", 1.0, 1.1)
+from repro_torch import tuner
+from repro_torch.core.torch_collectives import RaggedGathervPlanner
+svc = tuner.PlannerService(mesh=rt.LocalMesh(5, device="cpu"), quantum=4)
+got, _ = svc.gatherv([np.ones((s, 2), np.float32) for s in m], 1)
+assert got.shape == (17, 2) and svc.compiled_misses == 1
+sp = tuner.ServingPlanner(tuner.PlannerService(mesh=None, quantum=1))
+sp.plan_step("alltoallv", np.eye(4, dtype=np.int64) * 3)
+assert sp.prefetch() >= 0 and sp.stats()["steps"] == 1
+assert RaggedGathervPlanner(rt.LocalMesh(2, device="cpu")).bucketed([1]) == (128,)
+from repro_torch.launch import serve_trace
+assert len(serve_trace.serve_trace(4, 3)) == 3
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
@@ -107,7 +118,7 @@ def test_no_source_imports_jax_or_repro():
     files = list(_port_files())
     assert len(files) > 10
     for sub in ("core", "kernels", "models", "configs", "train", "launch",
-                "obs", "flash_attention", "rg_lru"):
+                "obs", "tuner", "flash_attention", "rg_lru"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
     for path in files:
         with open(path) as fh:

@@ -16,9 +16,14 @@ into 2 emulated hosts of 4 (the counterpart of
 gathered from host ids, bad ids refused on every rank, the topology and
 the plan-cache fingerprint; rooted, allgatherv and alltoallv on the flat
 and the two-level trees, bitwise; the Lemma-3 metadata exchange agreed on
-every rank; and ``calibrate_axes`` over the intra-host and inter-host
-subgroups giving finite positive fits, the same on every rank.  Rank 0
-prints the line the test looks for.
+every rank; ``calibrate_axes`` over the intra-host and inter-host
+subgroups giving finite positive fits, the same on every rank; and the
+planner service over the live mesh (the counterpart of the child's
+``check_planner_service``): the topology inferred from the mesh,
+``hosts=2x4`` in the key's fingerprint, a ``two_level`` candidate among
+the alltoallv costs, and a gatherv, an allgatherv and a scatterv
+executed eagerly through the service, bitwise on every rank.  Rank 0 prints the line the
+test looks for.
 """
 import os
 import signal
@@ -151,6 +156,48 @@ def _alltoallv(mesh, rank, schedule_of) -> None:
         got[rank], np.concatenate([ab[i][rank] for i in range(WORLD)]))
 
 
+def _planner_service(mesh, rank: int, hosts: int, D: int) -> str:
+    from repro_torch import tuner as tt
+    from repro_torch.core.costmodel import CostParams, HierarchicalCostParams
+
+    topo = tt.PlannerService(mesh=mesh).topology    # inferred
+    assert (topo.hosts, topo.devices_per_host) == (hosts, D)
+    ici = CostParams(1e-6, 2e-11, "s", "byte")
+    hp = HierarchicalCostParams(ici, CostParams(50e-6, 16e-11, "s", "byte"),
+                                topo)
+    svc = tt.PlannerService(mesh=mesh, quantum=16, params=hp,
+                            segments=(1, 2), wave_bins=(2.0,))
+    assert svc.topology == topo
+    key = svc._key("gatherv", [64] * WORLD, 0, "float32", 4)
+    assert f"hosts={hosts}x{D}" in key.mesh, key.mesh
+    rng = np.random.default_rng(3)
+    loads = rng.dirichlet(np.full(WORLD, 0.3))
+    S = (np.outer(np.full(WORLD, 1.0 / WORLD), loads) * WORLD * 192
+         ).astype(np.int64)
+    rec = svc.plan_record("alltoallv", S, row_bytes=4096)
+    names = [n for n, _ in rec.costs]
+    assert any(n.startswith("two_level") for n in names), names
+    sizes = [int(s) for s in rng.integers(0, 40, WORLD)]
+    blocks = [rng.standard_normal((s, 5)).astype(np.float32) for s in sizes]
+    want = np.concatenate(blocks)
+    for root in (0, 5):
+        got, plan = svc.gatherv(blocks, root=root)
+        if rank == root:
+            assert got.tobytes() == want.tobytes()
+        else:
+            assert got is None
+    got, _ = svc.allgatherv(blocks)
+    assert got.shape == (1,) + want.shape
+    assert got[0].tobytes() == want.tobytes()
+    got, _ = svc.scatterv(want, sizes, root=5)
+    assert got[rank].tobytes() == blocks[rank].tobytes()
+    assert sum(g is None for g in got) == WORLD - 1
+    assert (svc.compiled_misses, svc.compiled_hits) == (4, 0)
+    ex = next(iter(svc._compiled.values()))
+    assert ex.graph is None            # eager on a process group
+    return f"service selected {rec.algo} among {len(names)} candidates"
+
+
 def _host_lane(rank: int) -> str:
     import torch.distributed as dist
 
@@ -207,7 +254,9 @@ def _host_lane(rank: int) -> str:
     dist.all_gather_object(every, {a: (f.alpha_s, f.beta_s_per_byte)
                                    for a, f in fits.items()})
     assert all(e == every[0] for e in every), every
-    return (f"2x{D} hosts, fits {every[0]}: PROCESS GROUP HOST LANE PASSED")
+    planned = _planner_service(mesh, rank, hosts, D)
+    return (f"2x{D} hosts, fits {every[0]}, {planned}: PROCESS GROUP HOST "
+            f"LANE PASSED")
 
 
 def _worker(rank: int, init_file: str, lane: str) -> None:

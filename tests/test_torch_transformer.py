@@ -167,12 +167,20 @@ def test_serve_requests_matches_jax_loop(arch):
 
 
 def test_serve_main_runs_on_cpu_and_defers_the_planner(capsys):
+    """The serving planner is on by default (``--experts 4``, as in the
+    reference); ``--experts 0`` turns it off, and ``--trace-replay``
+    runs (it raised before the planner was ported)."""
     assert serve.main(["--reduced", "--device", "cpu", "--requests", "3",
                        "--batch", "2", "--prompt-len", "8", "--gen", "2"]) == 0
-    assert "served 3 requests, 6 tokens" in capsys.readouterr().out
-    for extra in (["--experts", "4"], ["--trace-replay"]):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            serve.main(["--reduced", "--device", "cpu", *extra])
+    out = capsys.readouterr().out
+    assert "served 3 requests, 6 tokens" in out
+    assert "planner: " in out and "over 8 plan steps" in out
+    for extra in (["--experts", "0"], ["--trace-replay"]):
+        assert serve.main(["--reduced", "--device", "cpu", "--requests", "3",
+                           "--gen", "2", *extra]) == 0
+        out = capsys.readouterr().out
+        assert "served 3 requests, 6 tokens" in out
+        assert ("planner: " in out) == (extra != ["--experts", "0"])
 
 
 def test_pop_batch_and_route_step_match_jax():
