@@ -168,10 +168,41 @@ Phases, in order; any failure raises and the exit code is nonzero:
    the combine against a plan-only twin's NumPy path, the classes the
    twin's), with the captures after the first 16 steps; (c) a capture that
    synchronises the device raises, and the launch counts come back; K1–K5
-   and K8 must have been launched.
+   and K8 must have been launched;
+12. the training path on the card, TF32 off (torch's default), so the
+   card computes the reference's fp32 function: (a) ``launch/train``'s
+   run of granite-3-2b at full width and depth in fp32 (40 layers,
+   d_model 2048, 2.53 B parameters; random weights from the seed):
+   ``SyntheticLM`` batches of 2 × 512, lr 3e-3, 6 steps through
+   ``TrainLoop``, one checkpoint at the end into a temporary directory
+   removed afterwards; the loss finite and falling, step times, tokens/s,
+   peak memory against the prediction, the checkpoint's snapshot and
+   write times; (b) at full width, depth cut to 2 layers: one train step
+   on the card against the same step on the CPU from the same state
+   (loss and the gradient's global norm within 1e-5 relative, every
+   updated parameter and every leaf of mu, which is 0.1 x the clipped
+   gradient, within 1e-4 relative Frobenius), and the same step of
+   reduced mixtral-8x7b (the MoE layer) and reduced recurrentgemma-2b at
+   T 768 (the chunked RG-LRU scan), which a dense model cannot show;
+   then the reference's restart equivalence (12
+   steps, a checkpoint every 5, against a run killed at step 7 and
+   resumed at step 5) within 1e-6 on params, mu and nu, and whether it is
+   bitwise under ``torch.use_deterministic_algorithms``
+   (``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts); K6, K8 and K9
+   must not launch in (a) or (b), as the model trains on the reference's
+   plain computation; (c) the fault runtime on ``LocalMesh(16)`` at phase
+   3's sizes (``random``): gatherv, allgatherv and reduce_scatterv
+   bitwise under an injected transient ``TimeoutFault`` with the retries
+   counted, a persistent one escalated to ``CollectiveTimeout``, a
+   ``TrainLoop`` whose straggler ladder climbs on those timeouts to evict,
+   checkpoints and hands off to a handler that shrinks the gatherv onto
+   ``LocalMesh(15)`` (bitwise) and plans the checkpoint's consolidation
+   over the survivors, and a ``warn`` from ``ChaoticMachine``'s span
+   times that reaches a mesh ``PlannerService`` (one epoch bump, the next
+   plan bitwise); K1–K5 must have been launched.
 
 The line before the last is a JSON object with one entry per kernel
-(K1–K9), launches counted over phases 3, 5–11; the last is
+(K1–K9), launches counted over phases 3, 5–12; the last is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -179,6 +210,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -188,6 +220,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+# phase 12b holds a resumed run to an uninterrupted one under
+# torch.use_deterministic_algorithms, which needs cuBLAS's workspace fixed
+# before CUDA is initialised
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
@@ -250,6 +286,25 @@ REPLAY_ROUNDS, REPLAY_REPS = 3, 3   # replay against eager body, in turns
 # planner on LocalMesh(MOE_P) over the diurnal trace at Mixtral's d_model
 SERVE_EXPERTS, SERVE_TOP_K, SERVE_CLASS_BOUND = 4, 2, 0.25
 MOE_TRACE_STEPS, MOE_D_MODEL, MOE_WARMUP_STEPS = 64, 4096, 16
+# phase 12a: launch/train's run of granite-3-2b at full width and depth in
+# fp32; the memory predicted from 16 bytes a parameter (params, grads, mu,
+# nu) plus the activations of batch 2 x 512
+TRAIN_ARCH, TRAIN_B, TRAIN_T, TRAIN_LR, TRAIN_STEPS = (
+    "granite-3-2b", 2, 512, 3e-3, 6)
+TRAIN_PRED_GB = 52
+# phase 12b: full width, depth cut to 2 layers; the card's step against
+# the CPU's on batch 2 x 128 (CPU-sized), then the reference's restart
+# equivalence (12 steps, a checkpoint every 5, killed at 7)
+PARITY_LAYERS, PARITY_B, PARITY_T = 2, 2, 128
+PARITY_LOSS_RTOL, PARITY_PARAM_RTOL = 1e-5, 1e-4
+# ... and a step of the MoE layer (reduced mixtral-8x7b) and of the RG-LRU
+# scan (reduced recurrentgemma-2b, T 768 takes the chunked scan), which a
+# dense granite cannot show: under autograd they must run the plain MoE
+# gathers and the associative scan, launching neither K6 nor K9
+PARITY_REDUCED = (("mixtral-8x7b", PARITY_T), ("recurrentgemma-2b", 768))
+RESTART_STEPS, RESTART_EVERY, RESTART_FAIL, RESTART_TOL = 12, 5, 7, 1e-6
+# phase 12c: the fault runtime on LocalMesh(16) at phase 3's sizes
+FAULT_DIST, FAULT_VICTIM, FAULT_FACTOR, FAULT_RETRIES = "random", 2, 16.0, 2
 CSRC = "src/repro_torch/kernels/ragged_gather/csrc/"
 SOURCES = {"slab_extract": CSRC + "slab.cu", "slab_merge": CSRC + "slab.cu",
            "slab_step": CSRC + "slab.cu",
@@ -2560,6 +2615,424 @@ def capture_failure_raises(dev) -> None:
                              "capture")
 
 
+# ---------------------------------------------------------------- phase 12
+
+def train_path(dev, arch: str = TRAIN_ARCH, reduced: bool = False) -> dict:
+    """Phase 12a: ``launch/train``'s run of ``arch`` in fp32 (full width
+    and depth unless ``reduced``): ``SyntheticLM`` batches of
+    ``TRAIN_B`` x ``TRAIN_T``, ``TRAIN_STEPS`` steps through
+    ``TrainLoop``, one checkpoint at the end into a temporary directory
+    removed afterwards.  Loss per step (finite and falling), step times,
+    tokens/s, peak memory against the prediction, the checkpoint's
+    snapshot and write times."""
+    import tempfile
+
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import train as train_cli
+
+    tmp = tempfile.mkdtemp(prefix="phase12a_")
+    try:
+        argv = ["--arch", arch, "--steps", str(TRAIN_STEPS),
+                "--batch", str(TRAIN_B), "--seq", str(TRAIN_T),
+                "--lr", str(TRAIN_LR), "--ckpt-dir", tmp, "--log-every", "1",
+                "--device", str(dev)] + (["--reduced"] if reduced else [])
+        args = train_cli.parser().parse_args(argv)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cfg, pipeline, step_fn, state, loop = train_cli.build(args)
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tree_leaves(state.params))
+        log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{n_params} parameters, fp32; made in {init_s:.2f} s")
+        t0 = time.perf_counter()
+        state, hist = loop.run(state, TRAIN_STEPS, log_every=1)
+        run_s = time.perf_counter() - t0
+        losses = [r["loss"] for r in hist]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"12a: the loss is not finite and falling: "
+                                 f"{losses}")
+        dts = [r["dt"] for r in hist]
+        step_ms = float(np.median(dts[1:])) * 1e3
+        # where a step's device time goes (its launches must be 0 too; the
+        # profiler's count resets the launch counts, so they are kept)
+        from repro_torch.kernels.ragged_gather import ops
+        kept = dict(ops.LAUNCHES)
+        batch = pipeline.batch(TRAIN_STEPS)
+        prof = _profiled(f"{cfg.name} train step",
+                         {"train step": lambda: step_fn(state, batch)},
+                         reps=1)
+        prof.update(breakdown(prof))
+        ops.LAUNCHES.update(kept)
+        if any(prof["launches_per_call"]["train step"].values()):
+            raise AssertionError(f"12a: a train step launched "
+                                 f"{prof['launches_per_call']}")
+        flops = 6.0 * n_params * TRAIN_B * TRAIN_T
+        out = {"arch": cfg.name, "layers": cfg.n_layers,
+               "params": n_params, "batch": TRAIN_B, "seq": TRAIN_T,
+               "lr": TRAIN_LR, "losses": losses,
+               "step_ms": [dt * 1e3 for dt in dts],
+               "median_step_ms_after_first": step_ms,
+               "tokens_per_s": TRAIN_B * TRAIN_T / (step_ms / 1e3),
+               "model_tflop_per_step": flops / 1e12,
+               "model_tflops_per_s": flops / (step_ms / 1e3) / 1e12,
+               "state_bytes": 16 * n_params,
+               "snapshot_ms": loop.checkpointer.snapshot_s * 1e3,
+               "write_s": loop.checkpointer.write_s,
+               "run_s": run_s, "init_s": init_s, "profile": prof,
+               "tf32": torch.backends.cuda.matmul.allow_tf32}
+        if dev.type == "cuda":
+            out.update(peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+                       peak_reserved_bytes=torch.cuda.max_memory_reserved())
+            log(f"  peak memory: {out['peak_allocated_bytes'] / 1e9:.2f} GB "
+                f"allocated, {out['peak_reserved_bytes'] / 1e9:.2f} GB "
+                f"reserved (predicted ~{TRAIN_PRED_GB} GB: params, grads, "
+                f"mu, nu {out['state_bytes'] / 1e9:.1f} GB + activations)")
+        log(f"  loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+            f"{step_ms:.1f} ms (median after step 0), "
+            f"{out['tokens_per_s']:.0f} tokens/s, "
+            f"{out['model_tflops_per_s']:.1f} model TFLOP/s (6 N tokens); "
+            f"checkpoint snapshot {out['snapshot_ms']:.0f} ms, write "
+            f"{out['write_s']:.1f} s; TF32 "
+            f"{'on' if out['tf32'] else 'off (fp32 products)'}")
+        del state, loop
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def _rel_frob(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.linalg.vector_norm(a - b)
+                 / max(float(torch.linalg.vector_norm(b)), 1e-30))
+
+
+def _worst_leaf(got, want) -> tuple[float, str]:
+    """The largest relative Frobenius error over the leaves of two trees,
+    and its leaf's path."""
+    from repro_torch.core.tree import leaves_with_path, tree_leaves
+
+    worst, at = -1.0, None
+    for (path, a), b in zip(leaves_with_path(got), tree_leaves(want)):
+        e = _rel_frob(a, b)
+        if e > worst:
+            worst, at = e, "/".join(map(str, path))
+    return worst, at
+
+
+def _step_parity(dev, cfg, opt, batch: dict) -> dict:
+    """One train step of ``cfg`` on the card against the same step on the
+    CPU from the same state: the loss and the gradient's global norm
+    within ``PARITY_LOSS_RTOL``; every updated parameter and every leaf of
+    mu (0.1 x the clipped gradient, so the gradient itself, which the
+    parameters' update barely shows at step 0: Adam's first step is about
+    lr x sign(g)) within ``PARITY_PARAM_RTOL`` relative Frobenius."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.train import init_train_state, make_train_step
+
+    step_fn = make_train_step(cfg, opt, schedule_kw={
+        "warmup": 20, "total": RESTART_STEPS})
+    cpu = init_train_state(torch.Generator().manual_seed(SEED), cfg, opt,
+                           "cpu")
+    card = tree_map(lambda t: t.to(dev, copy=True), cpu)
+    cpu, cm = step_fn(cpu, batch)
+    card, dm = step_fn(card, batch)
+    rel = {k: abs(float(dm[k]) - float(cm[k])) / abs(float(cm[k]))
+           for k in ("loss", "grad_norm")}
+    p_err, p_at = _worst_leaf(card.params, cpu.params)
+    mu_err, mu_at = _worst_leaf(card.opt["mu"], cpu.opt["mu"])
+    T = batch["tokens"].shape[1]
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "batch": int(batch["tokens"].shape[0]), "seq": int(T),
+           "loss_card": float(dm["loss"]), "loss_cpu": float(cm["loss"]),
+           "loss_rel": rel["loss"], "grad_norm_card": float(dm["grad_norm"]),
+           "grad_norm_cpu": float(cm["grad_norm"]),
+           "grad_norm_rel": rel["grad_norm"], "param_rel_frob": p_err,
+           "param_worst_leaf": p_at, "mu_rel_frob": mu_err,
+           "mu_worst_leaf": mu_at}
+    log(f"  12b parity ({cfg.name}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, batch {out['batch']} x {T}): loss card "
+        f"{out['loss_card']:.6f} cpu {out['loss_cpu']:.6f} (rel "
+        f"{rel['loss']:.2e}), grad norm card {out['grad_norm_card']:.6f} cpu "
+        f"{out['grad_norm_cpu']:.6f} (rel {rel['grad_norm']:.2e}), tol "
+        f"{PARITY_LOSS_RTOL}; worst updated parameter {p_at} at {p_err:.2e}, "
+        f"worst mu {mu_at} at {mu_err:.2e} relative Frobenius (tol "
+        f"{PARITY_PARAM_RTOL})")
+    if not (rel["loss"] <= PARITY_LOSS_RTOL
+            and rel["grad_norm"] <= PARITY_LOSS_RTOL
+            and p_err <= PARITY_PARAM_RTOL and mu_err <= PARITY_PARAM_RTOL):
+        raise AssertionError(f"12b: the card's train step of {cfg.name} "
+                             f"differs from the CPU's")
+    del cpu, card
+    return out
+
+
+def parity_restart_path(dev, layers: int = PARITY_LAYERS,
+                        reduced: bool = False) -> dict:
+    """Phase 12b: ``TRAIN_ARCH`` at full width (unless ``reduced``), depth
+    cut to ``layers``.  One train step on the card against the same step
+    on the CPU from the same state, and the same for ``PARITY_REDUCED``'s
+    MoE and RG-LRU models; then the reference's restart
+    equivalence on the card (``RESTART_STEPS`` steps, a checkpoint every
+    ``RESTART_EVERY``, against a run killed at ``RESTART_FAIL`` and
+    resumed) under ``torch.use_deterministic_algorithms``."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import SimulatedFailure, TrainLoop
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    cfg = (cfg.reduced() if reduced else cfg).with_(n_layers=layers,
+                                                    dtype="float32")
+    opt = AdamWConfig(lr=TRAIN_LR)
+    step_fn = make_train_step(cfg, opt, schedule_kw={
+        "warmup": 20, "total": RESTART_STEPS})
+    pipeline = SyntheticLM(cfg.vocab, PARITY_T, PARITY_B)
+    out = {"arch": cfg.name, "layers": layers, "d_model": cfg.d_model,
+           "batch": PARITY_B, "seq": PARITY_T}
+
+    # one step on the card against the CPU from the same state, then the
+    # same for the MoE layer and the RG-LRU scan (reduced configs)
+    t0 = time.perf_counter()
+    out["parity"] = [_step_parity(dev, cfg, opt, pipeline.batch(0))]
+    for arch, t in PARITY_REDUCED:
+        rcfg = get_config(arch).reduced().with_(dtype="float32")
+        out["parity"].append(_step_parity(
+            dev, rcfg, opt, SyntheticLM(rcfg.vocab, t, PARITY_B).batch(0)))
+    out["parity_s"] = time.perf_counter() - t0
+
+    # restart equivalence on the card
+    def fresh():
+        return init_train_state(torch.Generator(device=dev).manual_seed(SEED),
+                                cfg, opt, dev)
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase12b_")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref, ref_hist = TrainLoop(step_fn, pipeline, os.path.join(tmp, "ref"),
+                                  ckpt_every=RESTART_EVERY).run(
+                                      fresh(), RESTART_STEPS)
+        killed = TrainLoop(step_fn, pipeline, os.path.join(tmp, "ft"),
+                           ckpt_every=RESTART_EVERY,
+                           fail_at_step=RESTART_FAIL)
+        try:
+            killed.run(fresh(), RESTART_STEPS)
+            raise AssertionError("12b: the injected failure did not fire")
+        except SimulatedFailure:
+            pass
+        got, hist = TrainLoop(step_fn, pipeline, os.path.join(tmp, "ft"),
+                              ckpt_every=RESTART_EVERY).run(
+                                  fresh(), RESTART_STEPS)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if hist[0]["step"] != RESTART_EVERY:
+        raise AssertionError(f"12b: the run restarted at step "
+                             f"{hist[0]['step']} instead of resuming at "
+                             f"{RESTART_EVERY}")
+    worst, bitwise = 0.0, True
+    for a, b in zip(tree_leaves(ref.params) + tree_leaves(ref.opt),
+                    tree_leaves(got.params) + tree_leaves(got.opt)):
+        bitwise &= torch.equal(a, b)
+        if a.is_floating_point():
+            worst = max(worst, float((a - b).abs().max()))
+    out.update(restart_resumed_at=hist[0]["step"],
+               restart_max_abs_diff=worst, restart_bitwise=bitwise,
+               restart_losses=[r["loss"] for r in ref_hist],
+               restart_s=time.perf_counter() - t0)
+    if not all(np.isfinite(out["restart_losses"])):
+        raise AssertionError("12b: a loss is not finite")
+    log(f"  12b restart: {RESTART_STEPS} steps, checkpoint every "
+        f"{RESTART_EVERY}, killed at {RESTART_FAIL}, resumed at step "
+        f"{hist[0]['step']}; params, mu, nu max |diff| {worst:.3e} (tol "
+        f"{RESTART_TOL}), bitwise under deterministic algorithms: "
+        f"{'yes' if bitwise else 'no'}")
+    if worst > RESTART_TOL:
+        raise AssertionError("12b: the resumed run does not land on the "
+                             "uninterrupted one")
+    del ref, got
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+class _StepIndex:
+    """A pipeline whose batch is its step, for a step that trains nothing."""
+
+    def batch(self, step: int) -> dict:
+        return {"step": step}
+
+
+def fault_runtime_path(dev, p: int = P, b: int = B, f: int = F) -> dict:
+    """Phase 12c: the fault runtime over ``LocalMesh(p)`` through K1–K5,
+    the ``FAULT_DIST`` sizes at ``b`` rows of ``f`` fp32 a rank: transient
+    injected timeouts retried to bitwise results, a persistent one
+    escalated to ``CollectiveTimeout``, a ``TrainLoop`` whose straggler
+    ladder climbs on those timeouts to evict and hands off to an elastic
+    shrink onto ``LocalMesh(p - 1)``, and a ``warn`` from
+    ``ChaoticMachine``'s span times reaching a mesh ``PlannerService``."""
+    import tempfile
+
+    import repro_torch as rt
+    from repro_torch.checkpoint import restore_latest, shrink_consolidation
+    from repro_torch.core import torch_collectives as tc
+    from repro_torch.core.distributions import block_sizes
+    from repro_torch.core.pipeline import execute_reduce_scatterv_plan_numpy
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.runtime import (ChaoticMachine, ExecutionFaultInjector,
+                                     FaultSchedule, HostLoss, LinkDegrade,
+                                     StragglerPolicy, TimeoutFault, TrainLoop,
+                                     remap_root, shrink_sizes,
+                                     surviving_ranks)
+    from repro_torch.tuner import PlannerService, SyntheticTimingBackend
+
+    mesh = rt.LocalMesh(p, device=dev)
+    sizes = block_sizes(FAULT_DIST, p, b, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    blocks = [rng.standard_normal((s, f), dtype=np.float32) for s in sizes]
+    want = np.concatenate(blocks)
+    narrow = [rng.standard_normal((sum(sizes), ORACLE_F), dtype=np.float32)
+              for _ in range(p)]
+    out = {"dist": FAULT_DIST, "p": p, "rows": b, "row_bytes": 4 * f}
+    tmp = tempfile.mkdtemp(prefix="phase12c_")
+    retries = REGISTRY.counter("run_retries")
+    tc.configure_step_deadline(None, retries=FAULT_RETRIES)
+    try:
+        # (1) one transient timeout an op: retried, bitwise
+        inj = ExecutionFaultInjector(FaultSchedule.scripted(
+            TimeoutFault(0, attempts=FAULT_RETRIES))).install()
+        r0 = retries.value
+        got, _ = rt.run_gatherv(mesh, blocks, 0)
+        _check_blocks("12c gatherv under injected faults", [got], [want])
+        ag, _ = rt.run_allgatherv(mesh, blocks)
+        _check_blocks("12c allgatherv under injected faults", ag, [want] * p)
+        rs, rs_plan = rt.run_reduce_scatterv(mesh, narrow, sizes)
+        _check_blocks("12c reduce_scatterv under injected faults", rs,
+                      execute_reduce_scatterv_plan_numpy(rs_plan, narrow))
+        out["transient_retries"] = retries.value - r0
+        out["transient_injected"] = inj.injected
+        if out["transient_retries"] != 3 * FAULT_RETRIES \
+                or inj.injected != 3 * FAULT_RETRIES:
+            raise AssertionError(f"12c: {out['transient_retries']} retries "
+                                 f"of {inj.injected} injected faults, want "
+                                 f"{3 * FAULT_RETRIES} each")
+        inj.uninstall()
+        log(f"  12c transient faults: gatherv, allgatherv, reduce_scatterv "
+            f"bitwise after {out['transient_retries']} retries "
+            f"(run_retries)")
+
+        # (2) a persistent fault escalates
+        inj = ExecutionFaultInjector(FaultSchedule.scripted(
+            TimeoutFault(0, op="gatherv", attempts=99))).install()
+        try:
+            rt.run_gatherv(mesh, blocks, 0)
+            raise AssertionError("12c: a persistent fault did not escalate")
+        except tc.CollectiveTimeout as e:
+            out["persistent_attempts"] = e.attempts
+            log(f"  12c persistent fault: {e}")
+        inj.uninstall()
+
+        # (3) the ladder climbs on timeouts to evict; the handler shrinks
+        sched = FaultSchedule.scripted(
+            *[TimeoutFault(s, op="gatherv", attempts=99) for s in range(3)],
+            HostLoss(FAULT_VICTIM, 2))
+        inj = ExecutionFaultInjector(sched).install()
+        state = {"blocks": [torch.from_numpy(x).to(dev) for x in blocks]}
+        evicted: dict = {}
+
+        def hung_step(st, batch):
+            inj.advance(batch["step"])
+            rt.run_gatherv(mesh, blocks, 0)
+            return st, {"loss": 0.0}
+
+        def on_evict(step, host):
+            inj.uninstall()
+            lost = sched.lost_hosts(step)
+            survivors = surviving_ranks(p, lost)
+            sroot = remap_root(0, survivors)
+            sblocks = [blocks[r] for r in survivors]
+            if shrink_sizes(sizes, survivors) != [len(x) for x in sblocks]:
+                raise AssertionError("12c: shrink_sizes")
+            got, _ = rt.run_gatherv(rt.LocalMesh(len(survivors), device=dev),
+                                    sblocks, sroot)
+            _check_blocks("12c gatherv on the survivors", [got],
+                          [np.concatenate(sblocks)])
+            _, manifest = restore_latest(state, os.path.join(tmp, "evict"))
+            shard_bytes = [4 * int(np.prod(manifest["leaves"][f"blocks/{r}"]
+                                           ["shape"])) for r in range(p)]
+            evicted.update(step=step, lost=sorted(lost),
+                           survivors=len(survivors),
+                           checkpoint_step=manifest["step"],
+                           consolidation=shrink_consolidation(shard_bytes,
+                                                              lost, 0))
+        loop = TrainLoop(hung_step, _StepIndex(), os.path.join(tmp, "evict"),
+                         ckpt_every=100, on_evict=on_evict)
+        _, hist = loop.run(state, 10)
+        actions = [r["action"] for r in hist]
+        if actions != ["warn", "backup", "evict"] or not evicted:
+            raise AssertionError(f"12c: the ladder went {actions}, "
+                                 f"evicted {evicted}")
+        out["ladder"] = actions
+        out["evict"] = evicted
+        log(f"  12c ladder on timeouts: {actions}; checkpoint at step "
+            f"{evicted['checkpoint_step']}, host {evicted['lost']} lost, "
+            f"gatherv bitwise on LocalMesh({evicted['survivors']}); "
+            f"consolidation over the survivors: "
+            f"{json.dumps(evicted['consolidation'])}")
+
+        # (4) a warn from the chaotic machine's span times reaches the
+        # planner service, which replans once and runs bitwise
+        # one rank a host, so the straggler's host ids are the
+        # machine's ranks (the service expands a host over its ranks)
+        svc = PlannerService(mesh=rt.LocalMesh(p, device=dev, hosts=p),
+                             quantum=1)
+        plan = svc.plan_record("gatherv", sizes, root=0, dtype="float32",
+                               row_bytes=4 * f).plan
+        machine = ChaoticMachine(SyntheticTimingBackend(),
+                                 FaultSchedule.scripted(LinkDegrade(
+                                     FAULT_VICTIM, FAULT_FACTOR)))
+        epoch0 = svc.params_epoch
+
+        def served_step(st, batch):
+            got, _ = svc.gatherv(blocks, 0)
+            _check_blocks("12c service gatherv", [got], [want])
+            return st, {"loss": 0.0}
+        loop = TrainLoop(served_step, _StepIndex(), os.path.join(tmp, "warn"),
+                         ckpt_every=100, planner=svc,
+                         straggler=StragglerPolicy(evict_after=99),
+                         host_times_fn=lambda step: machine.host_span_times(
+                             plan, row_bytes=4 * f))
+        _, hist = loop.run({"w": torch.zeros(4, device=dev)}, 1)
+        verdicts = hist[0].get("host_actions", {})
+        if verdicts.get(FAULT_VICTIM) != "warn" \
+                or svc.params_epoch != epoch0 + 1:
+            raise AssertionError(f"12c: verdicts {verdicts}, epoch "
+                                 f"{epoch0} -> {svc.params_epoch}")
+        rec = svc.plan_record("gatherv", sizes, root=0, dtype="float32",
+                              row_bytes=4 * f)
+        got, _ = svc.gatherv(blocks, 0)
+        _check_blocks("12c service gatherv after the replan", [got], [want])
+        out["warn"] = {"verdicts": verdicts, "epoch": [epoch0,
+                                                       svc.params_epoch],
+                       "link_health": svc.stats["link_health"],
+                       "algo_after": rec.algo}
+        log(f"  12c warn: verdicts {verdicts}, params epoch {epoch0} -> "
+            f"{svc.params_epoch}, link health {svc.stats['link_health']}, "
+            f"replanned gatherv {rec.algo} bitwise")
+    finally:
+        tc.set_fault_hook(None)
+        tc.configure_step_deadline(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def breakdown(p: dict) -> dict:
     """A profile's device time split into K8, K9, the GEMMs and the rest."""
     by = p["device_ms_per_round"]
@@ -2602,6 +3075,7 @@ def main() -> int:
     from repro_torch.kernels.ragged_gather import kernel, ops
     from repro_torch.kernels.rg_lru import kernel as rglru_kernel
 
+    t_script = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = card_line()
@@ -2814,9 +3288,42 @@ def main() -> int:
     torch.cuda.empty_cache()
     capture_failure_raises(dev)
     log(f"  phase 11 s: {time.perf_counter() - t0:.1f}")
+
+    log("== phase 12: the training path on the card (granite-3-2b in fp32 "
+        "through launch/train, step parity and restart, the fault runtime)")
+    torch.backends.cuda.matmul.allow_tf32 = False   # torch's default
+    log(f"  TF32 off (matmul.allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}, float32 matmul precision "
+        f"{torch.get_float32_matmul_precision()}): the card computes the "
+        f"reference's fp32 function")
+    no_grad_kernels = ("ragged_gather", "flash_attention", "rglru_scan")
+    t0 = time.perf_counter()
+    trained = main_path_launches("training path (12a)", (),
+                                 lambda: train_path(dev))
+    trained["launches"] = {k: ops.LAUNCHES[k] for k in no_grad_kernels}
+    log(json.dumps({"train_path": trained}))
+    log(f"  phase 12a s: {time.perf_counter() - t0:.1f}")
+    t1 = time.perf_counter()
+    parity = main_path_launches("step parity and restart (12b)", (),
+                                lambda: parity_restart_path(dev))
+    parity["launches"] = {k: ops.LAUNCHES[k] for k in no_grad_kernels}
+    log(json.dumps({"parity_restart_path": parity}))
+    log(f"  phase 12b s: {time.perf_counter() - t1:.1f}")
+    for what, got in (("12a", trained), ("12b", parity)):
+        if any(got["launches"].values()):
+            raise AssertionError(f"{what}: a forward-only kernel launched "
+                                 f"under autograd: {got['launches']}")
+    t1 = time.perf_counter()
+    faults = main_path_launches("fault runtime (12c)", SERVICE_KERNELS,
+                                lambda: fault_runtime_path(dev))
+    faults["launches"] = {k: ops.LAUNCHES[k] for k in SERVICE_KERNELS}
+    log(json.dumps({"fault_runtime_path": faults}))
+    log(f"  phase 12c s: {time.perf_counter() - t1:.1f}")
+    log(f"  phase 12 s: {time.perf_counter() - t0:.1f}")
     for name, n in launches.items():
         record[name]["launches"] = n
 
+    log(f"script s: {time.perf_counter() - t_script:.1f}")
     log(card)
     log(json.dumps({"kernels": [record[k] for k in REPLACES]}))
     log(json.dumps({"ok": True, "device": {

@@ -7,9 +7,12 @@ modules mirror ``repro``'s layout and names.  Subpackages: core (trees,
 plans, executors, meshes with their host split), tuner (calibration,
 candidates and selection of a collective's schedule), kernels (hand-written CUDA kernels beside their
 plain PyTorch versions), models (the MoE layer, attention, the
-transformer), train (the serving steps), launch (the serving entry point),
-configs (the architectures it runs at), obs (spans and metrics of the
-entry points).
+transformer), train (the train step and the serving steps), optim
+(AdamW, its schedule, gradient compression), data (the synthetic
+pipelines), checkpoint (the checkpoint store), runtime (chaos, the
+straggler ladder, the fault-tolerant train loop), launch (the serving and
+training entry points), configs (the architectures it runs at), obs
+(spans and metrics of the entry points).
 """
 from .core import (AllreducevPlan, ComposedPlan, GathervPlan,  # noqa: F401
                    LocalMesh, ProcessGroupMesh, ReduceScattervPlan,

@@ -272,3 +272,24 @@ def cache_from_numpy(tree: dict, device=None) -> dict:
     prefill's or decode step's output, as numpy arrays), unstacked like
     :func:`model_params_from_numpy`; each ``pos`` a 0-d int32 tensor."""
     return _grouped_from_numpy(tree, resolve_device(device))
+
+
+def train_state_from_numpy(state, device=None):
+    """The port's ``train.steps.TrainState`` from the reference's, its
+    leaves as numpy arrays (``jax.tree.map(np.asarray, state)``): params,
+    AdamW's ``mu`` and ``nu`` unstacked like
+    :func:`model_params_from_numpy`, ``count`` and ``step`` as 0-d int32
+    tensors, all on ``device`` (the current CUDA device when ``None``)."""
+    from ..train.steps import TrainState
+
+    device = resolve_device(device)
+    opt = state.opt
+
+    def scalar(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int32).to(device)
+    return TrainState(
+        _grouped_from_numpy(state.params, device),
+        {"mu": _grouped_from_numpy(opt["mu"], device),
+         "nu": _grouped_from_numpy(opt["nu"], device),
+         "count": scalar(opt["count"])},
+        scalar(state.step))

@@ -37,6 +37,25 @@ def use_kernels(enable: bool | None) -> None:
     _KERNELS = enable
 
 
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on ``tensors``: grad mode is on and
+    one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would record a call of ``kernel``: the
+    hand-written kernels are forward only, as the JAX package's Pallas
+    kernels are, and an extension's output carries no ``grad_fn``, so a
+    loss through it would lose its gradient silently.  The model takes the
+    reference's training computation under autograd instead."""
+    if needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{kernel} is forward only (no backward, as in the JAX "
+            f"package); a training step runs the reference's plain "
+            f"computation under autograd (ROADMAP item D2)")
+
+
 def use_kernel(t: torch.Tensor) -> bool:
     """Whether a wrapper launches its kernel for ``t``."""
     if t.device.type not in ("cpu", "cuda"):

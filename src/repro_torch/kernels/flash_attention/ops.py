@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ..backend import LAUNCHES, use_kernel
+from ..backend import LAUNCHES, refuse_grad, use_kernel
 from . import kernel, ref
 
 
@@ -21,12 +21,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int | None = None) -> torch.Tensor:
     """K8: q ``(B, H, T, hd)``, k/v ``(B, Hkv, S, hd)`` → ``(B, H, T, hd)``
     in q's dtype; GQA maps q head h to kv head ``h // (H // Hkv)``."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "flash_attention is forward only (K8 has no backward, as in the "
-            "JAX package); the train step and its gradients are ROADMAP "
-            "item 9c")
+    refuse_grad("flash_attention (K8)", q, k, v)
     if not use_kernel(q):
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     out, launched = kernel.flash_attention_cuda(q, k, v, causal=causal,

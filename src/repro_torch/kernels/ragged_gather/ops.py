@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from ..backend import LAUNCHES, reset_launches, use_kernel  # noqa: F401
+from ..backend import (LAUNCHES, refuse_grad, reset_launches,  # noqa: F401
+                       use_kernel)
 from . import kernel, ref
 
 
@@ -81,7 +82,10 @@ def slab_step_reduce(buf: torch.Tensor, got: torch.Tensor,
 
 def ragged_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """K6: ``out[i] = x[clip(idx[i], 0, N - 1)]`` → ``(M, F)``, for any
-    dtype and row width; ``idx`` is int32."""
+    dtype and row width; ``idx`` is int32.  Forward only: a call that
+    autograd would record raises (the MoE layer then gathers with
+    ``ref.ragged_gather_ref``, which is differentiable)."""
+    refuse_grad("ragged_gather (K6)", x)
     if not use_kernel(x):
         return ref.ragged_gather_ref(x, idx)
     out, launched = kernel.ragged_gather_cuda(x, idx)

@@ -1,1 +1,2 @@
-"""Entry points of the port: the batched serving loop (``serve``)."""
+"""Entry points of the port: the batched serving loop (``serve``) and the
+training driver (``train``)."""

@@ -1,21 +1,25 @@
 """GQA self-attention with causal / sliding-window masking and KV-cache
 decode, the port of ``repro.models.attention``.
 
-Prefill and train (:func:`attention`) run the exact attention of the
-reference on K8 (``kernels.flash_attention.ops.flash_attention``), which
-computes what the reference's ``_sdpa`` / ``_sdpa_chunked`` compute over
-``causal_mask(t, t, 0, window)``.  The model's ``(B, T, H, hd)`` tensors
-go to K8 as ``(B, H, T, hd)`` views with no transpose copy (K8 takes
-strides); its output comes back in the same memory order, so the merge of
-heads is a view too.  Decode (:func:`attention_decode`, one token against
-the ring cache) stays plain PyTorch, as the reference computes it outside
-any Pallas kernel.
+Prefill and a forward pass without gradients (:func:`attention`) run the
+exact attention of the reference on K8
+(``kernels.flash_attention.ops.flash_attention``), which computes what the
+reference's ``_sdpa`` / ``_sdpa_chunked`` compute over ``causal_mask(t, t,
+0, window)``.  The model's ``(B, T, H, hd)`` tensors go to K8 as ``(B, H,
+T, hd)`` views with no transpose copy (K8 takes strides); its output comes
+back in the same memory order, so the merge of heads is a view too.  K8 is
+forward only, so under autograd (a train step) :func:`attention` runs the
+reference's own training computation instead: :func:`_sdpa` over the
+causal mask, or :func:`_sdpa_chunked` where the reference takes it (``t >
+2 * q_chunk`` and ``t % q_chunk == 0``).  Decode (:func:`attention_decode`,
+one token against the ring cache) stays plain PyTorch, as the reference
+computes it outside any Pallas kernel.
 
 Deviation from the reference: the cache is updated IN PLACE and returned
 (the reference returns new arrays), so a decode step writes one slot
 instead of copying the cache.  A caller that needs the old cache clones
 it first.  ``cache["pos"]`` is a 0-d int32 device tensor, so a decode step
-makes no host sync.  Cross-attention (the VLM) is ROADMAP item 9c.
+makes no host sync.  Cross-attention (the VLM) is ROADMAP item G.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import math
 
 import torch
 
+from ..kernels.backend import needs_grad
 from ..kernels.flash_attention.ops import flash_attention
 from .layers import apply_rope, trunc_normal
 
@@ -60,6 +65,38 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgts,bshd->bthgd", probs, v)
     return out.reshape(b, t, h * hd)
+
+
+def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int | None = None,
+                  q_chunk: int = 1024) -> torch.Tensor:
+    """Memory-chunked exact attention, the reference's loop over query
+    chunks (its ``lax.scan``), each with a full-row softmax: O(S * chunk)
+    transient memory instead of O(S^2).  With a sliding window a multiple
+    of the chunk, each chunk sees only the ``window + q_chunk`` keys it can
+    reach.  Shapes as :func:`_sdpa`; ``t % q_chunk == 0``."""
+    b, t, h, hd = q.shape
+    if t % q_chunk:
+        raise ValueError(f"{t} tokens do not split into chunks of {q_chunk}")
+    slicing = (window is not None and window % q_chunk == 0
+               and window + q_chunk <= t)
+    outs = []
+    for t0 in range(0, t, q_chunk):
+        qi = t0 + torch.arange(q_chunk, device=q.device)[:, None]
+        if slicing:
+            span = window + q_chunk
+            start = max(t0 + q_chunk - span, 0)
+            kc, vc = k[:, start: start + span], v[:, start: start + span]
+            kj = start + torch.arange(span, device=q.device)[None, :]
+            mask = (kj <= qi) & (kj > qi - window)
+        else:
+            kc, vc = k, v
+            kj = torch.arange(t, device=q.device)[None, :]
+            mask = kj <= qi
+            if window is not None:
+                mask &= kj > qi - window
+        outs.append(_sdpa(q[:, t0: t0 + q_chunk], kc, vc, mask[None, None]))
+    return torch.cat(outs, dim=1)
 
 
 def _quant_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -101,20 +138,29 @@ def _project(p: dict, x: torch.Tensor, n_heads: int, n_kv_heads: int,
 def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
               head_dim: int, rope_theta: float, window: int | None = None,
               positions: torch.Tensor | None = None,
-              cache: dict | None = None):
-    """Training/prefill self-attention on K8.  x ``(B, T, D)``.
+              cache: dict | None = None, q_chunk: int = 1024):
+    """Training/prefill self-attention.  x ``(B, T, D)``.
 
-    With ``cache`` (prefill), also writes k/v into the cache in the ring
-    layout the decode path reads (slot = pos mod S, the last S tokens
-    when ``t >= S``) and returns ``(out, cache)``."""
+    On K8, unless autograd records the call: then the reference's
+    :func:`_sdpa`, or :func:`_sdpa_chunked` for sequences longer than
+    ``2 * q_chunk`` that split into chunks.  With ``cache`` (prefill),
+    also writes k/v into the cache in the ring layout the decode path
+    reads (slot = pos mod S, the last S tokens when ``t >= S``) and
+    returns ``(out, cache)``."""
     b, t, _ = x.shape
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32, device=x.device)[None]
     q, k, v = _project(p, x, n_heads, n_kv_heads, head_dim, positions,
                        rope_theta)
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=True, window=window)
-    out = out.transpose(1, 2).reshape(b, t, n_heads * head_dim)
+    if not needs_grad(q, k, v):
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=True, window=window)
+        out = out.transpose(1, 2).reshape(b, t, n_heads * head_dim)
+    elif t > 2 * q_chunk and t % q_chunk == 0:
+        out = _sdpa_chunked(q, k, v, window=window, q_chunk=q_chunk)
+    else:
+        out = _sdpa(q, k, v, causal_mask(t, t, 0, window,
+                                         device=x.device)[None, None])
     out = out @ p["wo"].to(x.dtype)
     if cache is None:
         return out

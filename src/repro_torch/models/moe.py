@@ -17,8 +17,11 @@ grouped one with a single group, the same arithmetic on the same shapes.
 The reference's ``_group_constraint`` is a sharding hint and has no
 counterpart on one device.
 
-Inference only: the kernels have no backward yet, so the layer keeps its
-weights as buffers, not parameters.
+K6 is forward only, so under autograd (a train step) both gathers run its
+plain version ``ref.ragged_gather_ref``, an ``index_select``, which is
+differentiable: the reference's training computation (its
+``_moe_grouped``) has no Pallas kernel either.  The :class:`MoE` module
+serves, and keeps its weights as buffers, not parameters.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ from torch import nn
 from ..configs.base import MoEConfig
 from ..core.carry import params_from_numpy
 from ..core.mesh import resolve_device
-from ..kernels.ragged_gather import ops
+from ..kernels.backend import needs_grad
+from ..kernels.ragged_gather import ops, ref
 from .layers import init_mlp, mlp, trunc_normal
 
 
@@ -115,6 +119,13 @@ def init_moe(d_model: int, cfg: MoEConfig, dtype: torch.dtype,
     return p
 
 
+def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """K6, or its differentiable plain version where autograd records."""
+    if needs_grad(x):
+        return ref.ragged_gather_ref(x, idx)
+    return ops.ragged_gather(x, idx)
+
+
 def dispatch(xg: torch.Tensor, r: Routing) -> torch.Tensor:
     """The expert buffers ``(G, E, C, D)`` of tokens ``xg`` ``(G, Tl, D)``:
     one K6 gather over all groups' tokens, each group followed by a zero
@@ -124,7 +135,7 @@ def dispatch(xg: torch.Tensor, r: Routing) -> torch.Tensor:
     group = torch.arange(G, device=xg.device)[:, None]
     xz = torch.cat([xg, xg.new_zeros((G, 1, D))], 1).reshape(G * (Tl + 1), D)
     rows = (r.disp.view(G, E * C) + group * (Tl + 1)).to(torch.int32)
-    return ops.ragged_gather(xz, rows.reshape(-1)).view(G, E, C, D)
+    return _gather(xz, rows.reshape(-1)).view(G, E, C, D)
 
 
 def experts(p: dict, xe: torch.Tensor) -> torch.Tensor:
@@ -142,8 +153,8 @@ def combine(ye: torch.Tensor, r: Routing) -> torch.Tensor:
     G, E, C, D = ye.shape
     group = torch.arange(G, device=ye.device)[:, None]
     rows = r.eid * C + r.pos.clamp(max=C - 1) + group * (E * C)
-    contrib = ops.ragged_gather(ye.reshape(G * E * C, D).contiguous(),
-                                rows.reshape(-1).to(torch.int32))
+    contrib = _gather(ye.reshape(G * E * C, D).contiguous(),
+                      rows.reshape(-1).to(torch.int32))
     w = torch.where(r.keep, r.prob, 0.0).to(contrib.dtype).reshape(-1, 1)
     Tl = r.tokens
     out = torch.zeros((G * Tl, D), dtype=contrib.dtype, device=ye.device)

@@ -12,9 +12,10 @@ device.
 Modes: ``train`` (no cache), ``prefill`` (full sequence, fills caches),
 ``decode`` (one token against caches).  Block kinds ``dense``, ``moe``
 (the ported MoE layer, its gathers on K6) and ``local`` run here, their
-prefill attention on K8, and ``rglru`` (the RG-LRU block, its train and
-prefill scan on K9); ``mlstm``, ``slstm`` and ``cross`` are ROADMAP item
-9c.
+prefill attention on K8, and ``rglru`` (the RG-LRU block, its prefill
+scan on K9); ``mlstm``, ``slstm`` and ``cross`` are ROADMAP item G.  The
+kernels are forward only: under autograd (``train.steps``' train step)
+every block runs the reference's training computation instead.
 """
 from __future__ import annotations
 
@@ -30,9 +31,9 @@ from .layers import (embed, init_embedding, init_mlp, init_rmsnorm, mlp,
 from .moe import init_moe, moe_apply
 
 _KINDS = ("dense", "moe", "local", "rglru")
-_UNPORTED = {"mlstm": "ROADMAP item 9c (the xLSTM blocks)",
-             "slstm": "ROADMAP item 9c (the xLSTM blocks)",
-             "cross": "ROADMAP item 9c (cross-attention of the VLM)"}
+_UNPORTED = {"mlstm": "ROADMAP item G (the xLSTM blocks)",
+             "slstm": "ROADMAP item G (the xLSTM blocks)",
+             "cross": "ROADMAP item G (cross-attention of the VLM)"}
 
 
 def _check_kind(kind: str) -> None:
@@ -264,7 +265,7 @@ class Transformer(nn.Module):
     (:func:`init_params`) unless ``params`` is given (e.g. from
     ``core.carry.model_params_from_numpy``).  Runs on the current CUDA
     device unless ``device`` says otherwise; the weights stay where they
-    were made.  Inference only: K8 has no backward yet."""
+    were made.  Serving only; training goes through ``train.steps``."""
 
     def __init__(self, cfg: ArchConfig, device=None, seed: int = 0,
                  params: dict | None = None):

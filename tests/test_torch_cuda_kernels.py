@@ -634,3 +634,69 @@ def test_cuda_reduced_recurrentgemma_launches_k9_and_k8(cuda_device):
         rt.use_kernel_dataplane(None)
     torch.testing.assert_close(logits[:, -1], want[:, -1], rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_k6_and_k9_refuse_autograd(cuda_device):
+    """On the card, a K6 or K9 call that autograd would record raises
+    (the extensions' outputs carry no ``grad_fn``) and launches nothing;
+    under ``no_grad`` the kernels launch."""
+    from repro_torch.kernels.rg_lru import ops as rops
+
+    x = torch.randn(6, 4, device=cuda_device, requires_grad=True)
+    idx = torch.tensor([5, 0, 2], dtype=torch.int32, device=cuda_device)
+    a = torch.rand(2, 5, 4, device=cuda_device)
+    b = torch.randn(2, 5, 4, device=cuda_device, requires_grad=True)
+    h0 = torch.zeros(2, 4, device=cuda_device)
+    ops.reset_launches()
+    with pytest.raises(NotImplementedError, match="item D2"):
+        ops.ragged_gather(x, idx)
+    with pytest.raises(NotImplementedError, match="item D2"):
+        rops.rglru_scan(a, b, h0)
+    assert ops.LAUNCHES["ragged_gather"] == ops.LAUNCHES["rglru_scan"] == 0
+    with torch.no_grad():
+        assert torch.equal(ops.ragged_gather(x, idx), x[[5, 0, 2]])
+        rops.rglru_scan(a, b, h0)
+    assert ops.LAUNCHES["ragged_gather"] >= 1
+    assert ops.LAUNCHES["rglru_scan"] >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,T", [("mixtral-8x7b", 24),
+                                    ("recurrentgemma-2b", 768)])
+def test_cuda_gradients_through_moe_and_rglru_match_the_cpu(cuda_device,
+                                                           arch, T):
+    """The loss and every gradient of reduced mixtral-8x7b (the MoE layer)
+    and recurrentgemma-2b (the RG-LRU scan, chunked at T=768) on the card
+    within 1e-5 / 1e-4 (relative Frobenius) of the CPU's, which
+    ``tests/test_torch_train.py`` holds to the JAX package's; TF32 off.
+    No K6, K8 or K9 launch under autograd."""
+    import repro_torch as rt
+    from repro_torch.core.tree import tree_leaves, tree_unflatten
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = rt.get_config(arch).reduced()
+    cpu = init_train_state(torch.Generator().manual_seed(0), cfg,
+                           AdamWConfig(), "cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, T))
+                                 .astype(np.int32))
+             for k in ("tokens", "labels")}
+
+    def grads(params, device):
+        leaves = [p.detach().to(device).requires_grad_(True)
+                  for p in tree_leaves(params)]
+        loss, _ = loss_fn(tree_unflatten(params, leaves), cfg,
+                          {k: v.to(device) for k, v in batch.items()})
+        return loss, torch.autograd.grad(loss, leaves)
+    want_loss, want = grads(cpu.params, "cpu")
+    ops.reset_launches()
+    loss, got = grads(cpu.params, cuda_device)
+    assert all(n == 0 for n in ops.LAUNCHES.values())
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    for g, w in zip(got, want):
+        err = torch.linalg.vector_norm(g.cpu() - w) / torch.clamp_min(
+            torch.linalg.vector_norm(w), 1e-30)
+        assert float(err) <= 1e-4

@@ -90,6 +90,34 @@ assert sp.prefetch() >= 0 and sp.stats()["steps"] == 1
 assert RaggedGathervPlanner(rt.LocalMesh(2, device="cpu")).bucketed([1]) == (128,)
 from repro_torch.launch import serve_trace
 assert len(serve_trace.serve_trace(4, 3)) == 3
+import tempfile
+from repro_torch.data import RaggedBatcher, SyntheticLM
+from repro_torch.optim import AdamWConfig, compress_error_feedback
+from repro_torch.train import init_train_state, make_train_step
+from repro_torch.checkpoint import restore_latest
+from repro_torch.runtime import (ChaoticMachine, ExecutionFaultInjector,
+                                 FaultSchedule, TimeoutFault, TrainLoop)
+from repro_torch.launch import train as train_cli
+cfg = rt.get_config("granite-3-2b").reduced()
+state = init_train_state(torch.Generator().manual_seed(0), cfg,
+                         AdamWConfig(), "cpu")
+with tempfile.TemporaryDirectory() as d:
+    loop = TrainLoop(make_train_step(cfg, AdamWConfig()),
+                     SyntheticLM(cfg.vocab, 8, 2), d, ckpt_every=2)
+    state, hist = loop.run(state, 3)
+    assert [r["step"] for r in hist] == [0, 1, 2]
+    _, manifest = restore_latest(state, d)
+    assert manifest["step"] == 3
+assert RaggedBatcher(50, 4, 5).batch(0)[0].shape[0] == 4
+assert compress_error_feedback({"w": torch.ones(3)}, None)[0]["w"].dtype \
+    == torch.int8
+inj = ExecutionFaultInjector(FaultSchedule.scripted(TimeoutFault(0))).install()
+got, _ = rt.run_gatherv(rt.LocalMesh(4, device="cpu"), blocks[:4], 0)
+assert inj.injected == 1
+inj.uninstall()
+assert ChaoticMachine(tuner.SyntheticTimingBackend(),
+                      FaultSchedule()).true_params().alpha > 0
+assert train_cli.parser().parse_args([]).arch == "granite-3-2b"
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
@@ -118,7 +146,8 @@ def test_no_source_imports_jax_or_repro():
     files = list(_port_files())
     assert len(files) > 10
     for sub in ("core", "kernels", "models", "configs", "train", "launch",
-                "obs", "tuner", "flash_attention", "rg_lru"):
+                "obs", "tuner", "flash_attention", "rg_lru", "data", "optim",
+                "checkpoint", "runtime"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
     for path in files:
         with open(path) as fh:

@@ -196,9 +196,9 @@ def test_pop_batch_and_route_step_match_jax():
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("kind,item", [("mlstm", "item 9c"),
-                                       ("slstm", "item 9c"),
-                                       ("cross", "item 9c")])
+@pytest.mark.parametrize("kind,item", [("mlstm", "item G"),
+                                       ("slstm", "item G"),
+                                       ("cross", "item G")])
 def test_unported_kind_raises_and_names_its_roadmap_item(kind, item):
     cfg = ArchConfig(name="x", n_layers=2, d_model=32, n_heads=2,
                      n_kv_heads=2, d_ff=64, vocab=16, pattern=("dense", kind),
