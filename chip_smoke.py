@@ -12,8 +12,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the
    kernels' build time; ``ptxas``'s registers and spills of every kernel;
-   K8's Hopper kernel (hd 64, 128, 256), K1's and K6's bulk-copy kernels
-   and K9's single pass must not spill;
+   K8's Hopper kernel (hd 64, 128, 256) and its mma.sync kernel at hd 80,
+   K1's and K6's bulk-copy kernels and K9's single pass must not spill;
 2. kernels vs plain: K1–K3 against their plain PyTorch versions on the
    card at the gatherv path's shapes (P=16, ``buf_rows`` of the
    ``spikes`` plan, F=1024 fp32, and F=2048 bf16), and K4–K5 at the
@@ -199,16 +199,51 @@ Phases, in order; any failure raises and the exit code is nonzero:
    ``LocalMesh(15)`` (bitwise) and plans the checkpoint's consolidation
    over the survivors, and a ``warn`` from ``ChaoticMachine``'s span
    times that reaches a mesh ``PlannerService`` (one epoch bump, the next
-   plan bitwise); K1–K5 must have been launched.
+   plan bitwise); K1–K5 must have been launched;
+13. the rest of the model zoo, TF32 off: (a) ``launch/train``'s run of
+   xlstm-125m at full width and depth in fp32 (12 layers, d_model 768, 4
+   heads of 192; 75.9 M parameters) on ``SyntheticLM`` batches of 8 x 1024
+   (the chunkwise mLSTM), lr 3e-3, 6 steps: the loss finite and falling,
+   step times, tokens/s, peak memory; (b) 12b's step parity for
+   xlstm-125m at full width cut to its three mLSTM blocks (2 x 768, the
+   chunkwise form under autograd), xlstm-125m at full width and depth (2
+   x 64, the sLSTM loop under autograd, the parameters reported, not
+   gated), each limit raised to twice the move of the card's own step
+   between two summation orders, and reduced llama-3.2-vision-11b (2 x
+   128 with 8 image tokens); K6, K8 and K9 must not launch in (a) or
+   (b); (c) xlstm-125m served in bf16 at full width and depth as phase 7
+   serves yi-6b: no kernel launched, the fp32 view's prefill + decode
+   against ``forward`` within 1e-3 and the bf16 one within phase 8's gate,
+   what the sLSTM loop costs (kernels and time of one block's prefill, its
+   share of a prefill) and a profile; (d) K8 at the cross-attention's
+   shapes (T 2048 and T 1 against 1600 image tokens, non-causal), then
+   llama-3.2-vision-11b served in bf16 at full width and depth (40 layers,
+   8 of them cross; fp32 image embeddings (4, 1600, 4096) from the seed)
+   through ``make_prefill_step`` / ``make_decode_step``: one prefill
+   launches K8 48 times, a decode step 8, and phase 7's checks (the bf16
+   readings under phase 8's gate: at 40 layers they sit at the floor);
+   (e) K8 at stablelm-3b's head dim 80 and at llama3-405b's 128/8 heads,
+   then one prefill of 4 x 1024 and 4 decode steps of stablelm-3b,
+   musicgen-large (frame embeddings in, gelu) and llama3-405b cut to 4
+   layers, each against the plain versions and ``forward`` under phase
+   8's gate.  In (a)-(c)
+   every sLSTM ``rh`` is scaled to its fan-in (``slstm_fan_in``): at the
+   reference's init the sLSTM recurrence is chaotic.
 
-The line before the last is a JSON object with one entry per kernel
-(K1–K9), launches counted over phases 3, 5–12; the last is
-``{"ok": true, "device": {...}}``.
+Every phase runs under a watchdog (``faulthandler.dump_traceback_later``
+with the phase's limit in ``PHASE_LIMIT_S``): a phase that hangs ends
+the script with every thread's stack and exit code 1.  The line before
+the last is a JSON object with one entry per kernel (K1–K9), launches
+counted over phases 3 and 5–13; the last is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import faulthandler
+import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -305,6 +340,27 @@ PARITY_REDUCED = (("mixtral-8x7b", PARITY_T), ("recurrentgemma-2b", 768))
 RESTART_STEPS, RESTART_EVERY, RESTART_FAIL, RESTART_TOL = 12, 5, 7, 1e-6
 # phase 12c: the fault runtime on LocalMesh(16) at phase 3's sizes
 FAULT_DIST, FAULT_VICTIM, FAULT_FACTOR, FAULT_RETRIES = "random", 2, 16.0, 2
+# phase 13: the rest of the model zoo.  13a: launch/train's run of
+# xlstm-125m at full width and depth in fp32 on batches of 8 x 1024 (T >
+# 512 and a multiple of 256: the chunkwise mLSTM); the memory predicted
+# from 16 bytes a parameter plus the activations
+XLSTM_ARCH, XLSTM_B, XLSTM_T, XLSTM_PRED_GB = "xlstm-125m", 8, 1024, 12
+# 13b: xlstm-125m at full width on the card against the CPU: its three
+# mLSTM blocks at T 768 (three chunks of the chunkwise mLSTM), and the
+# whole depth at T 64 (the sLSTM loop); reduced llama-3.2-vision-11b at
+# PARITY_T
+PARITY_XLSTM_T, PARITY_SLSTM_T = 768, 64
+VLM_ARCH = "llama-3.2-vision-11b"
+# 13e: a prefill of 4 x 1024 and CONSIST_STEPS decode steps of each arch,
+# at full width; llama3-405b's depth cut to 4 layers to fit one card
+ARCH_B, ARCH_T = 4, 1024
+ARCHS_13E = (("stablelm-3b", None), ("musicgen-large", None),
+             ("llama3-405b", 4))
+# the hang watchdog: each phase's limit in seconds, about three times its
+# longest measured time on the H100 (at least two minutes; phase 1 builds
+# the kernels, in seconds here, but nvcc's time varies between machines)
+PHASE_LIMIT_S = {1: 300, 2: 120, 3: 120, 4: 120, 5: 450, 6: 120, 7: 120,
+                 8: 120, 9: 150, 10: 120, 11: 500, 12: 300, 13: 450}
 CSRC = "src/repro_torch/kernels/ragged_gather/csrc/"
 SOURCES = {"slab_extract": CSRC + "slab.cu", "slab_merge": CSRC + "slab.cu",
            "slab_step": CSRC + "slab.cu",
@@ -330,6 +386,44 @@ REPLACES = {"slab_extract": "src/repro/kernels/ragged_gather/kernel.py:123",
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+def release() -> None:
+    """Frees what a phase left behind: garbage cycles first (their
+    tensors stay allocated until a collection), then the allocator's
+    cache."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class Watchdog:
+    """Runs each phase under ``faulthandler.dump_traceback_later`` with its
+    limit (``PHASE_LIMIT_S``), cancelled at the phase's end: a wait that
+    never ends (a CUDA event that never completes) ends the script with
+    every thread's stack on stderr and exit code 1, not a silent stall.
+    Each phase starts from the memory the one before released."""
+
+    def __init__(self):
+        self.phase, self.t0 = None, 0.0
+
+    def start(self, phase: int, title: str) -> None:
+        self.stop()
+        release()
+        log(f"== phase {phase}: {title}")
+        log(f"  device memory at the start: "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+            f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+        self.phase, self.t0 = phase, time.perf_counter()
+        faulthandler.dump_traceback_later(PHASE_LIMIT_S[phase], exit=True)
+
+    def stop(self) -> None:
+        if self.phase is None:
+            return
+        faulthandler.cancel_dump_traceback_later()
+        log(f"  phase {self.phase} watched s: "
+            f"{time.perf_counter() - self.t0:.1f} (limit "
+            f"{PHASE_LIMIT_S[self.phase]})")
+        self.phase = None
 
 
 def card_line() -> str:
@@ -1408,6 +1502,32 @@ def first_batch(queue: list, dev) -> torch.Tensor:
     return torch.from_numpy(toks).to(dev)
 
 
+def _token_kw(c, params, toks, name: str, embeds=None) -> dict:
+    """A model's input for ``toks``: the tokens as ``name``, or (a config
+    fed embeddings) the embedding rows in the config's dtype, or
+    ``embeds`` when given."""
+    if embeds is not None:
+        return {"embeds": embeds}
+    if c.embed_inputs:
+        return {name: toks}
+    return {"embeds": params["embed"]["e"][toks].to(getattr(torch, c.dtype))}
+
+
+def _floor(fwd, emb: torch.Tensor, rng) -> dict:
+    """The bf16 noise floor of phase 8: the relative move of the last
+    logits of ``fwd(embeds)`` when 1, 10 and 1000 elements of ``emb`` move
+    by one bf16 ulp."""
+    base = fwd(emb)[:, -1]
+    floor = {}
+    for n in RG_FLOOR_ELEMENTS:
+        moved = emb.clone()
+        idx = torch.from_numpy(rng.choice(moved.numel(), n, replace=False))
+        moved.view(torch.int16).view(-1)[idx.to(emb.device)] += 1
+        floor[n] = _rel(fwd(moved)[:, -1], base)
+        del moved
+    return floor
+
+
 def serve_checks(dev, ctx: dict) -> tuple[dict, dict]:
     """Phase 7b's checks: one prefill of the first batch launches K8 once
     a layer and a decode step never, with finite logits; the prefill's
@@ -1426,18 +1546,14 @@ def serve_checks(dev, ctx: dict) -> tuple[dict, dict]:
     # in fp32, and the checks of the mechanism sit far above rounding noise
     cfg32 = cfg.with_(dtype="float32", embed_inputs=False)
 
-    def inputs(c, toks, name):
-        if c.embed_inputs:
-            return {name: toks}
-        return {"embeds": params["embed"]["e"][toks].float()}
-
     def fwd(c, toks, cache=None):
         return forward(params, c, cache=cache,
                        logits_last_only=cache is not None,
-                       **inputs(c, toks, "tokens"))
+                       **_token_kw(c, params, toks, "tokens"))
 
     def dec(c, cache, tok):
-        return decode_step(params, c, cache, **inputs(c, tok, "token"))
+        return decode_step(params, c, cache,
+                           **_token_kw(c, params, tok, "token"))
 
     toks = first_batch(queue, dev)
     plen = toks.shape[1]
@@ -1590,7 +1706,6 @@ def rg_checks(dev, ctx: dict) -> tuple[dict, dict]:
     # bf16 fed from embeddings (for the floor's moved inputs)
     cfg32 = cfg.with_(dtype="float32", embed_inputs=False)
     cfg_e = cfg.with_(embed_inputs=False)
-    table = params["embed"]["e"]
 
     def plain(fn):
         rt.use_kernel_dataplane(False)
@@ -1599,13 +1714,6 @@ def rg_checks(dev, ctx: dict) -> tuple[dict, dict]:
         finally:
             rt.use_kernel_dataplane(None)
 
-    def kw(c, toks, name, embeds=None):
-        if embeds is not None:
-            return {"embeds": embeds}
-        if c.embed_inputs:
-            return {name: toks}
-        return {"embeds": table[toks].to(getattr(torch, c.dtype))}
-
     toks = first_batch(queue, dev)
     plen = toks.shape[1]
     cache_len = plen + SERVE_GEN
@@ -1613,22 +1721,26 @@ def rg_checks(dev, ctx: dict) -> tuple[dict, dict]:
     def prefill(c=cfg, embeds=None):
         logits, _, cache = tf.forward(
             params, c, cache=tf.init_cache(c, SERVE_BATCH, cache_len, dev),
-            logits_last_only=True, **kw(c, toks, "tokens", embeds))
+            logits_last_only=True,
+            **_token_kw(c, params, toks, "tokens", embeds))
         return logits, cache
 
     def dec(c, cache, tok):
-        return tf.decode_step(params, c, cache, **kw(c, tok, "token"))
+        return tf.decode_step(params, c, cache,
+                              **_token_kw(c, params, tok, "token"))
 
     def consist(c, seq):
         """Prefill of RG_CONSIST_T tokens then decode steps against
         ``forward`` over the same tokens (batch 1; the ring wraps)."""
         T = RG_CONSIST_T
-        full = tf.forward(params, c, **kw(c, seq, "tokens"))[0]
+        full = tf.forward(params, c,
+                          **_token_kw(c, params, seq, "tokens"))[0]
         want = full[:, T - 1:T + CONSIST_STEPS].clone()
         del full
         first, _, c1 = tf.forward(
             params, c, cache=tf.init_cache(c, 1, T + CONSIST_STEPS, dev),
-            logits_last_only=True, **kw(c, seq[:, :T], "tokens"))
+            logits_last_only=True,
+            **_token_kw(c, params, seq[:, :T], "tokens"))
         outs = [first]
         for i in range(CONSIST_STEPS):
             out, c1 = dec(c, c1, seq[:, T + i:T + i + 1])
@@ -1704,15 +1816,7 @@ def rg_checks(dev, ctx: dict) -> tuple[dict, dict]:
     # 4. bf16 at full depth, against the floor of one-ulp input moves
     errs["prefill_vs_plain_bf16"] = _rel(logits[:, -1], plain_last[:, -1])
     errs["prefill_decode_vs_forward_bf16"] = consist(cfg, seq)
-    emb = hidden[0]
-    base = prefill(cfg_e, emb)[0]
-    floor = {}
-    for n in RG_FLOOR_ELEMENTS:
-        moved = emb.clone()
-        idx = torch.from_numpy(rng.choice(moved.numel(), n, replace=False))
-        moved.view(torch.int16).view(-1)[idx.to(dev)] += 1
-        floor[n] = _rel(prefill(cfg_e, moved)[0][:, -1], base[:, -1])
-        del moved
+    floor = _floor(lambda e: prefill(cfg_e, e)[0], hidden[0], rng)
     gate = max(SERVE_TOL, 2 * max(floor.values()))
 
     # 5. the planted fault at full depth
@@ -1720,7 +1824,7 @@ def rg_checks(dev, ctx: dict) -> tuple[dict, dict]:
     for i in range(len(blocks)):
         x = run_block(i, x, fault_cfg if i == fault else None)
     fault_full = _rel(last_logits(x)[:, -1], plain_last[:, -1])
-    del x, hidden, base, emb
+    del x, hidden
 
     log(f"  checks: one prefill launches {once}, a decode step {in_decode}; "
         f"relative errors {errs} (limits: fp32 view {MECH_TOL}, bf16 gate "
@@ -2617,23 +2721,28 @@ def capture_failure_raises(dev) -> None:
 
 # ---------------------------------------------------------------- phase 12
 
-def train_path(dev, arch: str = TRAIN_ARCH, reduced: bool = False) -> dict:
-    """Phase 12a: ``launch/train``'s run of ``arch`` in fp32 (full width
-    and depth unless ``reduced``): ``SyntheticLM`` batches of
-    ``TRAIN_B`` x ``TRAIN_T``, ``TRAIN_STEPS`` steps through
+def train_path(dev, arch: str = TRAIN_ARCH, reduced: bool = False,
+               batch_size: int = TRAIN_B, seq: int = TRAIN_T,
+               pred_gb: float = TRAIN_PRED_GB, label: str = "12a",
+               prepare=None, profile: bool = True) -> dict:
+    """Phase 12a (and 13a): ``launch/train``'s run of ``arch`` in fp32
+    (full width and depth unless ``reduced``): ``SyntheticLM`` batches of
+    ``batch_size`` x ``seq``, ``TRAIN_STEPS`` steps through
     ``TrainLoop``, one checkpoint at the end into a temporary directory
-    removed afterwards.  Loss per step (finite and falling), step times,
-    tokens/s, peak memory against the prediction, the checkpoint's
-    snapshot and write times."""
+    removed afterwards.  ``prepare(params, cfg)``, where given, adjusts
+    the fresh weights before the run.  Loss per step (finite and
+    falling), step times, tokens/s, peak memory against the prediction
+    ``pred_gb``, the checkpoint's snapshot and write times, and (with
+    ``profile``) a profile of one more step."""
     import tempfile
 
     from repro_torch.core.tree import tree_leaves
     from repro_torch.launch import train as train_cli
 
-    tmp = tempfile.mkdtemp(prefix="phase12a_")
+    tmp = tempfile.mkdtemp(prefix=f"phase{label}_")
     try:
         argv = ["--arch", arch, "--steps", str(TRAIN_STEPS),
-                "--batch", str(TRAIN_B), "--seq", str(TRAIN_T),
+                "--batch", str(batch_size), "--seq", str(seq),
                 "--lr", str(TRAIN_LR), "--ckpt-dir", tmp, "--log-every", "1",
                 "--device", str(dev)] + (["--reduced"] if reduced else [])
         args = train_cli.parser().parse_args(argv)
@@ -2642,6 +2751,8 @@ def train_path(dev, arch: str = TRAIN_ARCH, reduced: bool = False) -> dict:
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         cfg, pipeline, step_fn, state, loop = train_cli.build(args)
+        if prepare is not None:
+            prepare(state.params, cfg)
         init_s = time.perf_counter() - t0
         n_params = sum(t.numel() for t in tree_leaves(state.params))
         log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
@@ -2651,30 +2762,32 @@ def train_path(dev, arch: str = TRAIN_ARCH, reduced: bool = False) -> dict:
         run_s = time.perf_counter() - t0
         losses = [r["loss"] for r in hist]
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-            raise AssertionError(f"12a: the loss is not finite and falling: "
-                                 f"{losses}")
+            raise AssertionError(f"{label}: the loss is not finite and "
+                                 f"falling: {losses}")
         dts = [r["dt"] for r in hist]
         step_ms = float(np.median(dts[1:])) * 1e3
         # where a step's device time goes (its launches must be 0 too; the
         # profiler's count resets the launch counts, so they are kept)
         from repro_torch.kernels.ragged_gather import ops
-        kept = dict(ops.LAUNCHES)
-        batch = pipeline.batch(TRAIN_STEPS)
-        prof = _profiled(f"{cfg.name} train step",
-                         {"train step": lambda: step_fn(state, batch)},
-                         reps=1)
-        prof.update(breakdown(prof))
-        ops.LAUNCHES.update(kept)
-        if any(prof["launches_per_call"]["train step"].values()):
-            raise AssertionError(f"12a: a train step launched "
-                                 f"{prof['launches_per_call']}")
-        flops = 6.0 * n_params * TRAIN_B * TRAIN_T
+        prof = None
+        if profile:
+            kept = dict(ops.LAUNCHES)
+            batch = pipeline.batch(TRAIN_STEPS)
+            prof = _profiled(f"{cfg.name} train step",
+                             {"train step": lambda: step_fn(state, batch)},
+                             reps=1)
+            prof.update(breakdown(prof))
+            ops.LAUNCHES.update(kept)
+            if any(prof["launches_per_call"]["train step"].values()):
+                raise AssertionError(f"{label}: a train step launched "
+                                     f"{prof['launches_per_call']}")
+        flops = 6.0 * n_params * batch_size * seq
         out = {"arch": cfg.name, "layers": cfg.n_layers,
-               "params": n_params, "batch": TRAIN_B, "seq": TRAIN_T,
+               "params": n_params, "batch": batch_size, "seq": seq,
                "lr": TRAIN_LR, "losses": losses,
                "step_ms": [dt * 1e3 for dt in dts],
                "median_step_ms_after_first": step_ms,
-               "tokens_per_s": TRAIN_B * TRAIN_T / (step_ms / 1e3),
+               "tokens_per_s": batch_size * seq / (step_ms / 1e3),
                "model_tflop_per_step": flops / 1e12,
                "model_tflops_per_s": flops / (step_ms / 1e3) / 1e12,
                "state_bytes": 16 * n_params,
@@ -2687,7 +2800,7 @@ def train_path(dev, arch: str = TRAIN_ARCH, reduced: bool = False) -> dict:
                        peak_reserved_bytes=torch.cuda.max_memory_reserved())
             log(f"  peak memory: {out['peak_allocated_bytes'] / 1e9:.2f} GB "
                 f"allocated, {out['peak_reserved_bytes'] / 1e9:.2f} GB "
-                f"reserved (predicted ~{TRAIN_PRED_GB} GB: params, grads, "
+                f"reserved (predicted ~{pred_gb} GB: params, grads, "
                 f"mu, nu {out['state_bytes'] / 1e9:.1f} GB + activations)")
         log(f"  loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
             f"{step_ms:.1f} ms (median after step 0), "
@@ -2723,13 +2836,21 @@ def _worst_leaf(got, want) -> tuple[float, str]:
     return worst, at
 
 
-def _step_parity(dev, cfg, opt, batch: dict) -> dict:
+def _step_parity(dev, cfg, opt, batch: dict, label: str = "12b",
+                 prepare=None, floor: bool = False,
+                 gate_params: bool = True) -> dict:
     """One train step of ``cfg`` on the card against the same step on the
     CPU from the same state: the loss and the gradient's global norm
     within ``PARITY_LOSS_RTOL``; every updated parameter and every leaf of
     mu (0.1 x the clipped gradient, so the gradient itself, which the
     parameters' update barely shows at step 0: Adam's first step is about
-    lr x sign(g)) within ``PARITY_PARAM_RTOL`` relative Frobenius."""
+    lr x sign(g)) within ``PARITY_PARAM_RTOL`` relative Frobenius.
+    ``prepare(params, cfg)``, where given, adjusts the fresh weights
+    first.  With ``floor`` each limit is ``max(limit, 2 x floor)``, the
+    floor measured here: how far the card's own step moves when it sums
+    the same batch in another order, as two microbatches (the same
+    function: equal halves, the mean of their means).  Without
+    ``gate_params`` the updated parameters are reported, not gated."""
     from repro_torch.core.tree import tree_map
     from repro_torch.train import init_train_state, make_train_step
 
@@ -2737,35 +2858,55 @@ def _step_parity(dev, cfg, opt, batch: dict) -> dict:
         "warmup": 20, "total": RESTART_STEPS})
     cpu = init_train_state(torch.Generator().manual_seed(SEED), cfg, opt,
                            "cpu")
+    if prepare is not None:
+        prepare(cpu.params, cfg)
+    halves = tree_map(lambda t: t.to(dev, copy=True), cpu) if floor \
+        else None
     card = tree_map(lambda t: t.to(dev, copy=True), cpu)
     cpu, cm = step_fn(cpu, batch)
     card, dm = step_fn(card, batch)
-    rel = {k: abs(float(dm[k]) - float(cm[k])) / abs(float(cm[k]))
-           for k in ("loss", "grad_norm")}
-    p_err, p_at = _worst_leaf(card.params, cpu.params)
-    mu_err, mu_at = _worst_leaf(card.opt["mu"], cpu.opt["mu"])
+
+    def errors(got, gm, want, wm) -> dict:
+        out = {k: abs(float(gm[k]) - float(wm[k])) / abs(float(wm[k]))
+               for k in ("loss", "grad_norm")}
+        out["param"], out["param_at"] = _worst_leaf(got.params, want.params)
+        out["mu"], out["mu_at"] = _worst_leaf(got.opt["mu"], want.opt["mu"])
+        return out
+    err = errors(card, dm, cpu, cm)
+    limit = {"loss": PARITY_LOSS_RTOL, "grad_norm": PARITY_LOSS_RTOL,
+             "param": PARITY_PARAM_RTOL, "mu": PARITY_PARAM_RTOL}
+    order = None
+    if floor:
+        halves, hm = make_train_step(cfg, opt, schedule_kw={
+            "warmup": 20, "total": RESTART_STEPS}, microbatches=2)(
+                halves, batch)
+        order = errors(halves, hm, card, dm)
+        limit = {k: max(v, 2 * order[k]) for k, v in limit.items()}
+        del halves
     T = batch["tokens"].shape[1]
     out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "batch": int(batch["tokens"].shape[0]), "seq": int(T),
            "loss_card": float(dm["loss"]), "loss_cpu": float(cm["loss"]),
-           "loss_rel": rel["loss"], "grad_norm_card": float(dm["grad_norm"]),
+           "loss_rel": err["loss"], "grad_norm_card": float(dm["grad_norm"]),
            "grad_norm_cpu": float(cm["grad_norm"]),
-           "grad_norm_rel": rel["grad_norm"], "param_rel_frob": p_err,
-           "param_worst_leaf": p_at, "mu_rel_frob": mu_err,
-           "mu_worst_leaf": mu_at}
-    log(f"  12b parity ({cfg.name}, {cfg.n_layers} layers, d_model "
+           "grad_norm_rel": err["grad_norm"], "param_rel_frob": err["param"],
+           "param_worst_leaf": err["param_at"], "mu_rel_frob": err["mu"],
+           "mu_worst_leaf": err["mu_at"], "limits": limit,
+           "floor": order}
+    log(f"  {label} parity ({cfg.name}, {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, batch {out['batch']} x {T}): loss card "
         f"{out['loss_card']:.6f} cpu {out['loss_cpu']:.6f} (rel "
-        f"{rel['loss']:.2e}), grad norm card {out['grad_norm_card']:.6f} cpu "
-        f"{out['grad_norm_cpu']:.6f} (rel {rel['grad_norm']:.2e}), tol "
-        f"{PARITY_LOSS_RTOL}; worst updated parameter {p_at} at {p_err:.2e}, "
-        f"worst mu {mu_at} at {mu_err:.2e} relative Frobenius (tol "
-        f"{PARITY_PARAM_RTOL})")
-    if not (rel["loss"] <= PARITY_LOSS_RTOL
-            and rel["grad_norm"] <= PARITY_LOSS_RTOL
-            and p_err <= PARITY_PARAM_RTOL and mu_err <= PARITY_PARAM_RTOL):
-        raise AssertionError(f"12b: the card's train step of {cfg.name} "
-                             f"differs from the CPU's")
+        f"{err['loss']:.2e}), grad norm card {out['grad_norm_card']:.6f} cpu "
+        f"{out['grad_norm_cpu']:.6f} (rel {err['grad_norm']:.2e}); worst "
+        f"updated parameter {err['param_at']} at {err['param']:.2e}, worst "
+        f"mu {err['mu_at']} at {err['mu']:.2e} relative Frobenius; limits "
+        f"{limit}" + (f" (floor: the card's step in two microbatches "
+                      f"against one, {order})" if floor else ""))
+    if not gate_params:
+        del limit["param"]
+    if not all(err[k] <= v for k, v in limit.items()):
+        raise AssertionError(f"{label}: the card's train step of "
+                             f"{cfg.name} differs from the CPU's")
     del cpu, card
     return out
 
@@ -3033,6 +3174,618 @@ def fault_runtime_path(dev, p: int = P, b: int = B, f: int = F) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+
+def slstm_fan_in(params: dict, cfg) -> None:
+    """Scales every sLSTM block's recurrent weight ``rh`` ``(H, hd, 4 hd)``
+    in place from the reference's init, whose fan-in is ``shape[0]`` (the
+    ``H`` heads: std 1/sqrt(H)), to the fan-in of the product it enters
+    (``hd``: std 1/sqrt(hd)).  At the reference's scale xlstm-125m's sLSTM
+    recurrence is chaotic: a 1e-6 change of one input moves its output by
+    about 4 % after 64 steps and the training gradients overflow past
+    some 400 steps, in both packages (ROADMAP Queue 3), so no two
+    evaluation orders could be compared."""
+    hd = cfg.d_model // cfg.n_heads
+    log(f"  {cfg.name}: sLSTM rh scaled to the fan-in hd = {hd} (std "
+        f"1/sqrt({hd}); the reference's init: 1/sqrt({cfg.n_heads}))")
+    blocks = params["first"] + [b for period in params["body"]
+                                for b in period] + params["tail"]
+    with torch.no_grad():
+        for blk in blocks:
+            if "rh" in blk.get("rec", {}):
+                blk["rec"]["rh"].mul_(math.sqrt(cfg.n_heads / hd))
+
+
+def arch_parity_path(dev) -> dict:
+    """Phase 13b: one train step on the card against the same step on the
+    CPU from the same state, at 12b's gates: xlstm-125m at full width,
+    depth cut to its three mLSTM blocks, on ``PARITY_B`` x
+    ``PARITY_XLSTM_T`` (the chunkwise mLSTM under autograd); xlstm-125m at
+    full width and depth on ``PARITY_B`` x ``PARITY_SLSTM_T`` (the sLSTM
+    loop under autograd); for both, each gate is raised to twice the
+    move of the card's own step between two summation orders (the xLSTM's
+    gradients carry more fp32 rounding than granite's).  At full depth the
+    updated parameters are reported, not gated: Adam's first step is
+    about lr x sign(g), and one gradient entry within rounding of zero
+    that flips its sign moves the 768 x 4 ``wi`` leaf by 1.5e-4 relative,
+    so the gradient itself (mu) carries the check.  And reduced
+    llama-3.2-vision-11b on ``PARITY_B`` x ``PARITY_T`` with its image
+    tokens (a cross block under autograd, where K8 must not launch)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import AdamWConfig
+
+    opt = AdamWConfig(lr=TRAIN_LR)
+    cfg = get_config(XLSTM_ARCH).with_(dtype="float32")
+    out = [_step_parity(dev, cfg.with_(n_layers=3), opt, SyntheticLM(
+        cfg.vocab, PARITY_XLSTM_T, PARITY_B).batch(0), "13b", floor=True),
+        _step_parity(dev, cfg, opt, SyntheticLM(
+            cfg.vocab, PARITY_SLSTM_T, PARITY_B).batch(0), "13b",
+            prepare=slstm_fan_in, floor=True, gate_params=False)]
+    vcfg = get_config(VLM_ARCH).reduced()
+    batch = SyntheticLM(vcfg.vocab, PARITY_T, PARITY_B).batch(0)
+    batch["img"] = np.random.default_rng(SEED).standard_normal(
+        (PARITY_B, vcfg.n_img_tokens, vcfg.d_model)).astype(np.float32)
+    out.append(_step_parity(dev, vcfg, opt, batch, "13b"))
+    return {"parity": out}
+
+
+def xlstm_checks(dev, ctx: dict) -> tuple[dict, dict]:
+    """Phase 13c's checks on xlstm-125m: a prefill and a decode step
+    launch no kernel and give finite logits; prefill of ``CONSIST_T``
+    tokens then ``CONSIST_STEPS`` decode steps against ``forward`` over
+    the same tokens, within ``MECH_TOL`` with fp32 activations and, in
+    bf16, within ``max(SERVE_TOL, 2 x floor)``, the floor measured here on
+    that forward.  Returns the thunks of a prefill and a decode step and
+    the numbers."""
+    from repro_torch.kernels import backend
+    from repro_torch.models import transformer as tf
+
+    cfg, params, queue, rng = (ctx["cfg"], ctx["params"], ctx["queue"],
+                               ctx["rng"])
+    cfg32 = cfg.with_(dtype="float32", embed_inputs=False)
+    cfg_e = cfg.with_(embed_inputs=False)
+    toks = first_batch(queue, dev)
+    cache_len = toks.shape[1] + SERVE_GEN
+
+    def prefill(c=cfg):
+        logits, _, cache = tf.forward(
+            params, c, cache=tf.init_cache(c, SERVE_BATCH, cache_len, dev),
+            logits_last_only=True, **_token_kw(c, params, toks, "tokens"))
+        return logits, cache
+
+    def dec(c, cache, tok):
+        return tf.decode_step(params, c, cache,
+                              **_token_kw(c, params, tok, "token"))
+
+    backend.reset_launches()
+    logits, cache = prefill()
+    cur = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    dlogits, cache = dec(cfg, cache, cur)
+    torch.cuda.synchronize(dev)
+    launched = {k: n for k, n in backend.LAUNCHES.items() if n}
+    if launched:
+        raise AssertionError(f"xlstm-125m's prefill and decode launched "
+                             f"{launched}; its blocks have no kernel")
+    if not (bool(torch.isfinite(logits).all())
+            and bool(torch.isfinite(dlogits).all())):
+        raise AssertionError("non-finite logits in prefill or decode")
+
+    T = CONSIST_T
+    seq = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, T + CONSIST_STEPS)).astype(np.int32)).to(dev)
+
+    def consist(c):
+        full = tf.forward(params, c,
+                          **_token_kw(c, params, seq, "tokens"))[0]
+        first, _, c1 = tf.forward(
+            params, c, cache=tf.init_cache(c, 1, T + CONSIST_STEPS, dev),
+            logits_last_only=True,
+            **_token_kw(c, params, seq[:, :T], "tokens"))
+        outs = [first]
+        for i in range(CONSIST_STEPS):
+            out, c1 = dec(c, c1, seq[:, T + i:T + i + 1])
+            outs.append(out)
+        return _rel(torch.cat(outs, 1), full[:, T - 1:T + CONSIST_STEPS])
+
+    errs = {"prefill_decode_vs_forward_fp32": consist(cfg32),
+            "prefill_decode_vs_forward_bf16": consist(cfg)}
+    floor = _floor(lambda e: tf.forward(params, cfg_e, embeds=e)[0],
+                   params["embed"]["e"][seq], rng)
+    gate = max(SERVE_TOL, 2 * max(floor.values()))
+    log(f"  checks: a prefill and a decode step launch {launched or 'none'}; "
+        f"relative errors {errs} (limits: fp32 view {MECH_TOL}, bf16 gate "
+        f"{gate}); bf16 floor {floor}")
+    for name, err in errs.items():
+        limit = MECH_TOL if name.endswith("fp32") else gate
+        if not err <= limit:
+            raise AssertionError(f"{name}: relative error {err} > {limit}")
+    def short_prefill():
+        return tf.forward(
+            params, cfg, cache=tf.init_cache(cfg, SERVE_BATCH, T, dev),
+            logits_last_only=True, tokens=toks[:, -T:])
+
+    fns = {"prefill": prefill, "short_prefill": short_prefill,
+           "decode_step": lambda: dec(cfg, cache, cur)}
+    return fns, {**errs, "floor_bf16": floor, "gate_bf16": gate}
+
+
+def slstm_cost(dev, ctx: dict, prefill) -> dict:
+    """What the sLSTM's Python loop costs: one sLSTM block's prefill at the
+    first batch's shape (bf16, random input from the seed), its device
+    kernels counted and its busy time summed by ``torch.profiler``, its
+    wall time by the host clock; and the share of a whole prefill spent
+    in the sLSTM blocks (each call synchronised and timed in place)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import recurrent as rec
+    from repro_torch.models import transformer as tf
+
+    cfg, params = ctx["cfg"], ctx["params"]
+    group, index, _, _ = next(b for b in tf._blocks(cfg) if b[2] == "slstm")
+    p = tf._get(params, group, index)["rec"]
+    plen = max(len(q) for q in ctx["queue"][:SERVE_BATCH])
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((SERVE_BATCH, plen, cfg.d_model), generator=g,
+                    device=dev).to(getattr(torch, cfg.dtype))
+    rec.slstm_block(p, x, cfg.n_heads)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    rec.slstm_block(p, x, cfg.n_heads)
+    torch.cuda.synchronize(dev)
+    block_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rec.slstm_block(p, x, cfg.n_heads)
+        torch.cuda.synchronize(dev)
+    kernels, busy_us = 0, 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += e.count
+            busy_us += us
+    spent = []
+    orig = rec.slstm_block
+
+    def timed(*a, **k):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = orig(*a, **k)
+        torch.cuda.synchronize(dev)
+        spent.append(time.perf_counter() - t)
+        return out
+    rec.slstm_block = timed
+    try:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize(dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        rec.slstm_block = orig
+    out = {"batch": SERVE_BATCH, "tokens": plen,
+           "block_wall_ms": block_ms, "block_kernels": kernels,
+           "block_busy_ms": busy_us / 1e3,
+           "kernels_per_token": kernels / plen,
+           "slstm_blocks": len(spent),
+           "prefill_slstm_ms": 1e3 * sum(spent), "prefill_ms": prefill_ms,
+           "prefill_slstm_share": 1e3 * sum(spent) / prefill_ms}
+    log(f"  sLSTM loop: one block's prefill (B {SERVE_BATCH}, T {plen}) "
+        f"launches {kernels} kernels ({kernels / plen:.1f} a step), "
+        f"{busy_us / 1e3:.3f} ms busy in {block_ms:.3f} ms wall; in a "
+        f"prefill its {len(spent)} blocks take {1e3 * sum(spent):.1f} of "
+        f"{prefill_ms:.1f} ms ({100 * out['prefill_slstm_share']:.1f} %)")
+    return out
+
+
+def vision_setup(dev) -> dict:
+    """llama-3.2-vision-11b's random weights and requests (as
+    ``serve_setup``) and its image embeddings ``(SERVE_BATCH,
+    n_img_tokens, d_model)`` in fp32, all from the seed."""
+    ctx = serve_setup(dev, VLM_ARCH)
+    cfg = ctx["cfg"]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    ctx["img"] = torch.randn((SERVE_BATCH, cfg.n_img_tokens, cfg.d_model),
+                             generator=g, device=dev)
+    return ctx
+
+
+def vision_serve(dev, ctx: dict) -> dict:
+    """Phase 13d's main path: the requests served as ``serve_requests``
+    serves a token arch (left-padded batches of ``SERVE_BATCH``, a fresh
+    cache, one prefill, ``SERVE_GEN`` greedy decode steps), through
+    ``make_prefill_step`` / ``make_decode_step`` with the image
+    embeddings, which the serving driver does not take."""
+    from repro_torch.kernels import backend
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    cfg, params, queue, img = (ctx["cfg"], ctx["params"], ctx["queue"],
+                               ctx["img"])
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tokens, prefill_ms, decode_s = [], [], 0.0
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for b0 in range(0, len(queue), SERVE_BATCH):
+        prompts = queue[b0:b0 + SERVE_BATCH]
+        plen = max(len(p) for p in prompts)
+        toks = np.zeros((len(prompts), plen), np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, plen - len(p):] = p
+        im = img[:len(prompts)]
+        cache = init_cache(cfg, len(prompts), plen + SERVE_GEN, dev)
+        t1 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": torch.from_numpy(toks).to(
+            dev), "img": im}, cache)
+        cur = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+        picked = [cur]
+        for _ in range(SERVE_GEN):
+            logits, cache = decode(params, cache, {"tokens": cur, "img": im})
+            cur = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+            picked.append(cur)
+        torch.cuda.synchronize(dev)
+        prefill_ms.append((t2 - t1) * 1e3)
+        decode_s += time.perf_counter() - t2
+        tokens.extend(torch.cat(picked, 1).cpu().numpy())
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    for toks in tokens:
+        if toks.shape != (SERVE_GEN + 1,) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab:
+            raise AssertionError(f"served tokens out of range: {toks}")
+    n_out = SERVE_GEN * len(queue)
+    out = {"arch": cfg.name, "dtype": SERVE_DTYPE, "layers": cfg.n_layers,
+           "parameters": ctx["parameters"],
+           "weight_bytes": ctx["weight_bytes"], "init_s": ctx["init_s"],
+           "prompt_lens": ctx["lens"].tolist(), "batch": SERVE_BATCH,
+           "gen": SERVE_GEN, "img_tokens": cfg.n_img_tokens,
+           "prefill_ms": prefill_ms,
+           "decode_ms_per_step": 1e3 * decode_s / (len(prefill_ms)
+                                                   * SERVE_GEN),
+           "tokens_per_s": n_out / wall, "decode_tokens_per_s":
+               n_out / decode_s, "wall_s": wall, "peak_bytes": peak,
+           "k8_launches": backend.LAUNCHES["flash_attention"]}
+    log(f"  served {len(tokens)} requests in {len(prefill_ms)} batches: "
+        f"prefill ms {prefill_ms}, decode ms/step "
+        f"{out['decode_ms_per_step']:.3f}, {out['tokens_per_s']:.1f} "
+        f"tokens/s over {wall:.2f} s, peak {peak} bytes")
+    return out
+
+
+def vision_checks(dev, ctx: dict) -> tuple[dict, dict]:
+    """Phase 13d's checks, as phase 7b's: one prefill launches K8 once a
+    layer and once more a cross block, a decode step once a cross block,
+    with finite logits; the prefill's last logits against the plain
+    versions and prefill + decode against ``forward``, with fp32
+    activations within ``MECH_TOL`` and in bf16 within phase 8's gate
+    ``max(SERVE_TOL, 2 x floor)``, the floor measured here: at 40 layers
+    the bf16 readings sit at it."""
+    import repro_torch as rt
+    from repro_torch.kernels import backend
+    from repro_torch.models import transformer as tf
+
+    cfg, params, queue, rng, img = (ctx["cfg"], ctx["params"], ctx["queue"],
+                                    ctx["rng"], ctx["img"])
+    cfg32 = cfg.with_(dtype="float32", embed_inputs=False)
+    n_cross = sum(k == "cross" for _, _, k, _ in tf._blocks(cfg))
+    toks = first_batch(queue, dev)
+    cache_len = toks.shape[1] + SERVE_GEN
+
+    def prefill(c=cfg):
+        logits, _, cache = tf.forward(
+            params, c, img=img,
+            cache=tf.init_cache(c, SERVE_BATCH, cache_len, dev),
+            logits_last_only=True, **_token_kw(c, params, toks, "tokens"))
+        return logits, cache
+
+    def dec(c, cache, tok, im=img):
+        return tf.decode_step(params, c, cache, img=im,
+                              **_token_kw(c, params, tok, "token"))
+
+    backend.reset_launches()
+    logits, cache = prefill()
+    once = backend.LAUNCHES["flash_attention"]
+    cur = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    backend.reset_launches()
+    dlogits, cache = dec(cfg, cache, cur)
+    torch.cuda.synchronize(dev)
+    in_decode = backend.LAUNCHES["flash_attention"]
+    if once != cfg.n_layers + n_cross or in_decode != n_cross:
+        raise AssertionError(f"a prefill launched K8 {once} times (want "
+                             f"{cfg.n_layers + n_cross}), a decode step "
+                             f"{in_decode} (want {n_cross})")
+    if not (bool(torch.isfinite(logits).all())
+            and bool(torch.isfinite(dlogits).all())):
+        raise AssertionError("non-finite logits in prefill or decode")
+
+    T = CONSIST_T
+    seq = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, T + CONSIST_STEPS)).astype(np.int32)).to(dev)
+    errs = {}
+    for label, c in (("bf16", cfg), ("fp32", cfg32)):
+        k8 = logits if c is cfg else prefill(c)[0]
+        rt.use_kernel_dataplane(False)
+        try:
+            plain = prefill(c)[0]
+        finally:
+            rt.use_kernel_dataplane(None)
+        errs[f"prefill_vs_plain_{label}"] = _rel(k8[:, -1], plain[:, -1])
+        del k8, plain
+        full = tf.forward(params, c, img=img[:1],
+                          **_token_kw(c, params, seq, "tokens"))[0]
+        first, _, c1 = tf.forward(
+            params, c, img=img[:1],
+            cache=tf.init_cache(c, 1, T + CONSIST_STEPS, dev),
+            logits_last_only=True,
+            **_token_kw(c, params, seq[:, :T], "tokens"))
+        outs = [first]
+        for i in range(CONSIST_STEPS):
+            out, c1 = dec(c, c1, seq[:, T + i:T + i + 1], img[:1])
+            outs.append(out)
+        errs[f"prefill_decode_vs_forward_{label}"] = _rel(
+            torch.cat(outs, 1), full[:, T - 1:T + CONSIST_STEPS])
+        del full, c1, outs
+    # the bf16 noise floor of phase 8 on this model: the readings at full
+    # depth sit at it, so they are gated as phase 8 gates its own
+    cfg_e = cfg.with_(embed_inputs=False)
+    floor = _floor(lambda e: tf.forward(params, cfg_e, embeds=e,
+                                        img=img[:1])[0],
+                   params["embed"]["e"][seq], rng)
+    gate = max(SERVE_TOL, 2 * max(floor.values()))
+    log(f"  checks: one prefill launches K8 {once} times ({cfg.n_layers} "
+        f"self, {n_cross} cross), a decode step {in_decode}; relative "
+        f"errors {errs} (limits: fp32 view {MECH_TOL}, bf16 gate {gate}); "
+        f"bf16 floor {floor}")
+    for name, err in errs.items():
+        limit = MECH_TOL if name.endswith("fp32") else gate
+        if not err <= limit:
+            raise AssertionError(f"{name}: relative error {err} > {limit}")
+    fns = {"prefill": prefill, "decode_step": lambda: dec(cfg, cache, cur)}
+    return fns, {"k8_per_prefill": once, "k8_per_decode_step": in_decode,
+                 **errs, "floor_bf16": floor, "gate_bf16": gate}
+
+
+def arch_setup(dev, arch: str, layers: int | None) -> dict:
+    """``arch`` at full width in bf16 (depth cut to ``layers`` where
+    given), random weights from the seed, and the inputs of a prefill of
+    ``ARCH_B`` x ``ARCH_T`` and ``CONSIST_STEPS`` decode steps: tokens, or
+    frame embeddings for a config fed embeddings."""
+    import repro_torch as rt
+    from repro_torch.models.transformer import init_params
+
+    cfg = rt.get_config(arch).with_(dtype=SERVE_DTYPE)
+    if layers:
+        cfg = cfg.with_(n_layers=layers)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    leaves = [t for _, t in _tensors(params)]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    n = ARCH_T + CONSIST_STEPS
+    if cfg.embed_inputs:
+        seq = torch.randint(0, cfg.vocab, (ARCH_B, n), generator=g,
+                            device=dev, dtype=torch.int32)
+    else:
+        seq = torch.randn((ARCH_B, n, cfg.d_model), generator=g,
+                          device=dev).to(getattr(torch, cfg.dtype))
+    ctx = {"cfg": cfg, "params": params, "seq": seq, "init_s": init_s,
+           "parameters": sum(t.numel() for t in leaves),
+           "weight_bytes": sum(t.numel() * t.element_size() for t in leaves)}
+    log(f"  {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, hd {cfg.hd}, {ctx['parameters']} "
+        f"parameters, {ctx['weight_bytes']} bytes, made in {init_s:.2f} s")
+    return ctx
+
+
+def _seq_kw(cfg, seq: torch.Tensor, name: str) -> dict:
+    return {name: seq} if cfg.embed_inputs else {"embeds": seq}
+
+
+def arch_main(dev, ctx: dict) -> dict:
+    """Phase 13e's main path: a prefill of ``ARCH_T`` tokens and
+    ``CONSIST_STEPS`` decode steps through ``make_prefill_step`` /
+    ``make_decode_step``, timed; the logits are kept for the checks."""
+    from repro_torch.kernels import backend
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    cfg, params, seq = ctx["cfg"], ctx["params"], ctx["seq"]
+    key = "tokens" if cfg.embed_inputs else "embeds"
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cache = init_cache(cfg, ARCH_B, ARCH_T + CONSIST_STEPS, dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {key: seq[:, :ARCH_T]}, cache)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    outs = [logits]
+    for i in range(CONSIST_STEPS):
+        logits, cache = decode(params, cache,
+                               {key: seq[:, ARCH_T + i:ARCH_T + i + 1]})
+        outs.append(logits)
+    torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    ctx["served"] = torch.cat(outs, 1)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "hd": cfg.hd, "parameters": ctx["parameters"],
+           "weight_bytes": ctx["weight_bytes"], "init_s": ctx["init_s"],
+           "batch": ARCH_B, "prefill_tokens": ARCH_T,
+           "prefill_ms": (t1 - t0) * 1e3,
+           "decode_ms_per_step": (t2 - t1) * 1e3 / CONSIST_STEPS,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "k8_launches": backend.LAUNCHES["flash_attention"]}
+    log(f"  {cfg.name}: prefill {out['prefill_ms']:.1f} ms ({ARCH_B} x "
+        f"{ARCH_T}), decode {out['decode_ms_per_step']:.2f} ms a step, peak "
+        f"{out['peak_bytes']} bytes")
+    return out
+
+
+def arch_checks(dev, ctx: dict) -> dict:
+    """Phase 13e's checks: one prefill launches K8 once a layer and a
+    decode step never; finite logits; the main path's prefill against the
+    plain versions and its prefill + decode against ``forward`` over the
+    same ``ARCH_T + CONSIST_STEPS`` tokens, within phase 8's gate
+    ``max(SERVE_TOL, 2 x floor)``, the floor measured here."""
+    import repro_torch as rt
+    from repro_torch.kernels import backend
+    from repro_torch.models import transformer as tf
+
+    cfg, params, seq, served = (ctx["cfg"], ctx["params"], ctx["seq"],
+                                ctx["served"])
+
+    def prefill():
+        return tf.forward(params, cfg, cache=tf.init_cache(
+            cfg, ARCH_B, ARCH_T + CONSIST_STEPS, dev), logits_last_only=True,
+            **_seq_kw(cfg, seq[:, :ARCH_T], "tokens"))
+
+    backend.reset_launches()
+    logits, _, cache = prefill()
+    once = backend.LAUNCHES["flash_attention"]
+    backend.reset_launches()
+    tf.decode_step(params, cfg, cache,
+                   **_seq_kw(cfg, seq[:, ARCH_T:ARCH_T + 1], "token"))
+    torch.cuda.synchronize(dev)
+    in_decode = backend.LAUNCHES["flash_attention"]
+    if once != cfg.n_layers or in_decode != 0:
+        raise AssertionError(f"{cfg.name}: a prefill launched K8 {once} "
+                             f"times (want {cfg.n_layers}), a decode step "
+                             f"{in_decode} (want 0)")
+    if not bool(torch.isfinite(served).all()):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    del cache
+    rt.use_kernel_dataplane(False)
+    try:
+        plain = prefill()[0]
+    finally:
+        rt.use_kernel_dataplane(None)
+    errs = {"prefill_vs_plain_bf16": _rel(served[:, :1], plain)}
+    del plain
+    full = tf.forward(params, cfg, **_seq_kw(cfg, seq, "tokens"))[0]
+    errs["prefill_decode_vs_forward_bf16"] = _rel(
+        served, full[:, ARCH_T - 1:ARCH_T + CONSIST_STEPS])
+    del full
+    # the bf16 noise floor of phase 8 on one sequence, and its gate
+    cfg_e = cfg.with_(embed_inputs=False)
+    emb = seq[:1] if not cfg.embed_inputs else params["embed"]["e"][seq[:1]]
+    floor = _floor(lambda e: tf.forward(params, cfg_e, embeds=e)[0], emb,
+                   np.random.default_rng(SEED))
+    gate = max(SERVE_TOL, 2 * max(floor.values()))
+    log(f"  checks: one prefill launches K8 {once} times, a decode step "
+        f"{in_decode}; relative errors {errs} (gate max({SERVE_TOL}, 2 x "
+        f"floor) = {gate}); bf16 floor {floor}")
+    for name, err in errs.items():
+        if not err <= gate:
+            raise AssertionError(f"{cfg.name} {name}: relative error {err} "
+                                 f"> {gate}")
+    return {"k8_per_prefill": once, "k8_per_decode_step": in_decode, **errs,
+            "floor_bf16": floor, "gate_bf16": gate}
+
+
+def model_zoo_phase(dev, main_path_launches) -> None:
+    """Phase 13: xlstm-125m trained (13a) and a step of it and of reduced
+    llama-3.2-vision-11b held to the CPU's (13b); xlstm-125m served (13c);
+    llama-3.2-vision-11b served with its cross-attention on K8 (13d); a
+    prefill and decode steps of stablelm-3b (K8 at hd 80), musicgen-large
+    and llama3-405b cut to 4 layers (13e).  ``main_path_launches`` runs a
+    main path with the launch counts set to 0 just before and read just
+    after."""
+    from repro_torch.kernels.ragged_gather import ops
+
+    no_grad_kernels = ("ragged_gather", "flash_attention", "rglru_scan")
+    t0 = time.perf_counter()
+    trained = main_path_launches(
+        "xlstm-125m training (13a)", (),
+        lambda: train_path(dev, XLSTM_ARCH, batch_size=XLSTM_B, seq=XLSTM_T,
+                           pred_gb=XLSTM_PRED_GB, label="13a",
+                           prepare=slstm_fan_in, profile=False))
+    trained["launches"] = {k: ops.LAUNCHES[k] for k in no_grad_kernels}
+    log(json.dumps({"xlstm_train_path": trained}))
+    log(f"  phase 13a s: {time.perf_counter() - t0:.1f}")
+    t1 = time.perf_counter()
+    parity = main_path_launches("step parity (13b)", (),
+                                lambda: arch_parity_path(dev))
+    parity["launches"] = {k: ops.LAUNCHES[k] for k in no_grad_kernels}
+    log(json.dumps({"arch_parity_path": parity}))
+    log(f"  phase 13b s: {time.perf_counter() - t1:.1f}")
+    for what, got in (("13a", trained), ("13b", parity)):
+        if any(got["launches"].values()):
+            raise AssertionError(f"{what}: a forward-only kernel launched "
+                                 f"under autograd: {got['launches']}")
+
+    t1 = time.perf_counter()
+    ctx = serve_setup(dev, XLSTM_ARCH)
+    slstm_fan_in(ctx["params"], ctx["cfg"])
+    serving = main_path_launches("xlstm-125m serving path (13c)", (),
+                                 lambda: serve_main(dev, ctx))
+    fns, checks = xlstm_checks(dev, ctx)
+    cost = slstm_cost(dev, ctx, fns["prefill"])
+    log(json.dumps({"xlstm_serve_path": {**serving, **checks,
+                                         "slstm": cost}}))
+    # the profile of a prefill of CONSIST_T tokens (a whole prompt's
+    # 1e5 launches would take the profiler minutes) and of a decode step
+    prof = [_profiled(f"{XLSTM_ARCH} {name}", {name: fn}, reps=1)
+            for name, fn in (("prefill_256", fns["short_prefill"]),
+                             ("decode_step", fns["decode_step"]))]
+    for p in prof:
+        p.update(breakdown(p))
+    log(json.dumps({"profile": prof}))
+    del fns, ctx
+    release()
+    log(f"  phase 13c s: {time.perf_counter() - t1:.1f}")
+
+    t1 = time.perf_counter()
+    bf = torch.bfloat16
+    cases = [flash_case(dev, "vision cross bf16 B4 H32/8 T2048 S1600 hd128",
+                        bf, 4, 32, 8, 2048, 1600, 128, False, None),
+             flash_case(dev, "vision cross decode bf16 B4 H32/8 T1 S1600",
+                        bf, 4, 32, 8, 1, 1600, 128, False, None)]
+    log(json.dumps({"flash_kernels": cases}))
+    release()
+    ctx = vision_setup(dev)
+    serving = main_path_launches("llama-3.2-vision-11b serving path (13d)",
+                                 ("flash_attention",),
+                                 lambda: vision_serve(dev, ctx))
+    fns, checks = vision_checks(dev, ctx)
+    log(json.dumps({"vision_serve_path": {**serving, **checks}}))
+    prof = [_profiled(f"{VLM_ARCH} {name}", {name: fn}, reps=2)
+            for name, fn in fns.items()]
+    for p in prof:
+        p.update(breakdown(p))
+    log(json.dumps({"profile": prof}))
+    del fns, ctx
+    release()
+    log(f"  phase 13d s: {time.perf_counter() - t1:.1f}")
+
+    t1 = time.perf_counter()
+    k8_lines = {"stablelm-3b": (
+        "stablelm-3b prefill bf16 B4 H32/32 T2048 hd80", 32, 32, 80),
+        "llama3-405b": (
+        "llama3-405b prefill bf16 B4 H128/8 T2048 hd128", 128, 8, 128)}
+    for arch, layers in ARCHS_13E:
+        if arch in k8_lines:
+            label, H, Hkv, hd = k8_lines[arch]
+            case = flash_case(dev, label, bf, 4, H, Hkv, 2048, 2048, hd,
+                              True, None)
+            log(json.dumps({"flash_kernels": [case]}))
+        release()
+        ctx = arch_setup(dev, arch, layers)
+        served = main_path_launches(f"{arch} serving path (13e)",
+                                    ("flash_attention",),
+                                    lambda: arch_main(dev, ctx))
+        checks = arch_checks(dev, ctx)
+        log(json.dumps({"arch_serve_path": {**served, **checks}}))
+        del ctx
+        release()
+    log(f"  phase 13e s: {time.perf_counter() - t1:.1f}")
+
+
 def breakdown(p: dict) -> dict:
     """A profile's device time split into K8, K9, the GEMMs and the rest."""
     by = p["device_ms_per_round"]
@@ -3076,10 +3829,11 @@ def main() -> int:
     from repro_torch.kernels.rg_lru import kernel as rglru_kernel
 
     t_script = time.perf_counter()
+    watch = Watchdog()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = card_line()
-    log("== phase 1: device")
+    watch.start(1, "device")
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
@@ -3112,6 +3866,18 @@ def main() -> int:
                               or v.get("stack") for v in wgmma.values()):
         raise AssertionError(f"K8's wgmma kernels spill or are missing from "
                              f"the build log: {wgmma}")
+    # K8's mma.sync kernel at hd 80 (stablelm-3b's head dim): present and
+    # no spills
+    mma80 = {k: v for k, v in ptxas_report(_build.BUILD_LOG["flash"]).items()
+             if "flash_fwd_bf16ILi80E" in k}
+    for k, v in mma80.items():
+        log(f"  K8 flash_fwd_bf16<80> (mma.sync): {v.get('registers')} "
+            f"registers, {v.get('spill_stores')} bytes spill stores, "
+            f"{v.get('spill_loads')} bytes spill loads")
+    if len(mma80) != 1 or any(v.get("spill_stores") or v.get("spill_loads")
+                              for v in mma80.values()):
+        raise AssertionError(f"K8's hd-80 kernel spills or is missing from "
+                             f"the build log: {mma80}")
     # K1's and K6's bulk-copy kernels (K6: whole rows a stage, and pieces
     # of rows wider than a stage): present and no spills
     bulk = {**{k: v for k, v in ptxas_report(_build.BUILD_LOG["slab"]).items()
@@ -3139,7 +3905,7 @@ def main() -> int:
         raise AssertionError(f"K9's single pass spills or is missing from "
                              f"the build log: {chained}")
 
-    log("== phase 2: kernels vs plain (bitwise)")
+    watch.start(2, "kernels vs plain (bitwise)")
     spikes = rt.plan_gatherv(block_sizes("spikes", P, B, seed=SEED), 0)
     record: dict = {}
     kernel_phase(dev, spikes, torch.float32, F, record)
@@ -3166,25 +3932,25 @@ def main() -> int:
             launches[name] += n
         return out
 
-    log("== phase 3: gatherv/scatterv path (LocalMesh(16), bitwise)")
+    watch.start(3, "gatherv/scatterv path (LocalMesh(16), bitwise)")
     rows = main_path_launches("gatherv path",
                               ("slab_extract", "slab_merge", "slab_step"),
                               lambda: main_path(dev))
     log(json.dumps({"main_path": rows}))
 
-    log("== phase 4: where the time goes (torch.profiler)")
+    watch.start(4, "where the time goes (torch.profiler)")
     prof = [profile_phase(dev, "spikes", 0, 1), profile_phase(dev, "same", 0, 4),
             profile_reduce_phase(dev, "spikes", 1)]
     log(json.dumps({"profile": prof}))
 
-    log("== phase 5: reduction and composed path (LocalMesh(16), bitwise)")
+    watch.start(5, "reduction and composed path (LocalMesh(16), bitwise)")
     rows = main_path_launches("reduction and composed path",
                               ("slab_extract", "slab_merge", "slab_step",
                                "slab_merge_add", "slab_step_reduce"),
                               lambda: reduce_composed_path(dev))
     log(json.dumps({"reduce_composed_path": rows}))
 
-    log("== phase 6: MoE path (Mixtral-8x7B MoE layer, expert exchange on "
+    watch.start(6, "MoE path (Mixtral-8x7B MoE layer, expert exchange on "
         "LocalMesh(8))")
     torch.backends.cuda.matmul.allow_tf32 = False    # the fp32 recomputation
     torch.backends.cudnn.allow_tf32 = False
@@ -3204,7 +3970,7 @@ def main() -> int:
     del layer, x, r, fns
     torch.cuda.empty_cache()
 
-    log("== phase 7: serving path (yi-6b, full width and depth, bf16, "
+    watch.start(7, "serving path (yi-6b, full width and depth, bf16, "
         "prefill attention on K8)")
     t0 = time.perf_counter()
     cases = flash_kernel_phase(dev, record)
@@ -3226,7 +3992,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phase 7 s: {time.perf_counter() - t0:.1f}")
 
-    log("== phase 8: serving path (recurrentgemma-2b, full width and depth, "
+    watch.start(8, "serving path (recurrentgemma-2b, full width and depth, "
         "bf16, RG-LRU scan on K9, local attention on K8)")
     t0 = time.perf_counter()
     ctx = serve_setup(dev, RG_ARCH, RG_PROMPT)
@@ -3247,7 +4013,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phase 8 s: {time.perf_counter() - t0:.1f}")
 
-    log("== phase 9: the paper's trees on the card (LocalMesh(16), bitwise, "
+    watch.start(9, "the paper's trees on the card (LocalMesh(16), bitwise, "
         "traced)")
     t0 = time.perf_counter()
     zoo = main_path_launches("paper's trees",
@@ -3256,7 +4022,7 @@ def main() -> int:
     log(json.dumps({"zoo_path": zoo}))
     log(f"  phase 9 s: {time.perf_counter() - t0:.1f}")
 
-    log("== phase 10: the tuner on the card (LocalMesh(16, hosts=4): host "
+    watch.start(10, "the tuner on the card (LocalMesh(16, hosts=4): host "
         "split, metadata exchange, calibration, raced candidates, bitwise)")
     t0 = time.perf_counter()
     tuned = main_path_launches("tuner's races",
@@ -3266,7 +4032,7 @@ def main() -> int:
     log(json.dumps({"tuner_path": tuned}))
     log(f"  phase 10 s: {time.perf_counter() - t0:.1f}")
 
-    log("== phase 11: the planner service and the serving planner on the "
+    watch.start(11, "the planner service and the serving planner on the "
         "card (captured per-plan executors, bitwise)")
     from repro_torch import tuner as tt
 
@@ -3289,7 +4055,7 @@ def main() -> int:
     capture_failure_raises(dev)
     log(f"  phase 11 s: {time.perf_counter() - t0:.1f}")
 
-    log("== phase 12: the training path on the card (granite-3-2b in fp32 "
+    watch.start(12, "the training path on the card (granite-3-2b in fp32 "
         "through launch/train, step parity and restart, the fault runtime)")
     torch.backends.cuda.matmul.allow_tf32 = False   # torch's default
     log(f"  TF32 off (matmul.allow_tf32 "
@@ -3320,6 +4086,14 @@ def main() -> int:
     log(json.dumps({"fault_runtime_path": faults}))
     log(f"  phase 12c s: {time.perf_counter() - t1:.1f}")
     log(f"  phase 12 s: {time.perf_counter() - t0:.1f}")
+
+    watch.start(13, "the rest of the model zoo (xlstm-125m trained and "
+                "served, llama-3.2-vision-11b served with cross-attention "
+                "on K8, stablelm-3b, musicgen-large, llama3-405b)")
+    t0 = time.perf_counter()
+    model_zoo_phase(dev, main_path_launches)
+    log(f"  phase 13 s: {time.perf_counter() - t0:.1f}")
+    watch.stop()
     for name, n in launches.items():
         record[name]["launches"] = n
 

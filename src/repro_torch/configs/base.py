@@ -1,7 +1,8 @@
-"""Architecture configuration: the port's copy of the fields of
-``repro.configs.base`` that the MoE layer, the transformer and
-:meth:`ArchConfig.reduced` read (the distribution knobs of the JAX
-package stay there).
+"""Architecture configuration: the port's copy of ``repro.configs.base``
+with the fields that the models, the steps and :meth:`ArchConfig.reduced`
+read, and the benchmark shapes (:class:`ShapeConfig`, ``SHAPES``,
+:func:`shape_applicable`).  The distribution knobs of the JAX package
+(``remat``, ``fsdp_gather``) wait for the port of its sharding modules.
 
 ``pattern`` is the periodic block unit scanned over depth; block kinds:
   dense  — GQA self-attention (+optional sliding window) + MLP
@@ -76,3 +77,26 @@ class ArchConfig:
             head_dim=16, n_img_tokens=min(self.n_img_tokens, 8),
             dtype="float32",
         )
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: str) -> bool:
+    """long_500k needs sub-quadratic attention."""
+    if shape == "long_500k":
+        return cfg.sublinear_attention
+    return True

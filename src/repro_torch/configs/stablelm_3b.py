@@ -1,0 +1,7 @@
+"""stablelm-3b [dense] — [hf:stabilityai/stablelm-2-1_6b; unverified].
+32L d_model=2560 32H (kv=32) d_ff=6912 vocab=50304."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="stablelm-3b", n_layers=32, d_model=2560, n_heads=32, n_kv_heads=32,
+    d_ff=6912, vocab=50304, pattern=("dense",))

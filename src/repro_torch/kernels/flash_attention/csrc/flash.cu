@@ -24,7 +24,7 @@
 // Bound: 4 * hd FLOPs per visible (q, k) pair per head on the tensor
 // cores (989 TFLOP/s in bf16).  A prefill at T = 2048, hd = 128 is
 // compute-bound: q, k, v and o move over HBM in about a third of that
-// time.  So the bf16 kernel at the model widths (hd 64, 128, 256) is built
+// time.  So the bf16 kernel at hd 64, 128 and 256 is built
 // to keep the tensor cores fed:
 //  * TMA loads into rings.  One producer thread loads the CTA's q tile
 //    once, then each kv block's k tile and v tile into two-stage rings of
@@ -64,9 +64,12 @@
 // bf16); p is rounded to bf16 for the second product, as the JAX model's
 // _sdpa casts it to v's dtype; l sums the unrounded p.
 //
-// Dispatch by shape, not a fallback: hd 16 and 32, which no configuration
-// of the repository uses, run the first design of this kernel (mma.sync
-// m16n8k16, four warps, 64 query rows a CTA, synchronous loads); fp32 runs
+// Dispatch by shape, not a fallback: hd 16, 32 and 80 run the first design
+// of this kernel (mma.sync m16n8k16, four warps, 64 query rows a CTA,
+// synchronous loads).  80 is stablelm-3b's head dim: the wgmma tiles are
+// 64-column, 128-byte swizzled chunks, which 80 columns do not fill, while
+// the mma.sync tile takes any multiple of 16 (5 k-steps and 10 16-byte
+// vectors a row at 80).  fp32 runs
 // plain fp32 FMAs (TF32 would miss the 2e-5 that fp32 is held to), q
 // scaled by 1/sqrt(hd) in fp32 as it is loaded, 32 query rows a CTA.
 //
@@ -152,12 +155,13 @@ struct Bf16Tile {
   static constexpr int BM = 64;                  // query rows a CTA
   static constexpr int BN = 64;                  // keys a kv block
   static constexpr int LD = HD + 8;  // row stride in shared memory: rows
-                                     // stay 16-byte aligned and start 4
-                                     // banks apart
+                                     // stay 16-byte aligned, and the 8
+                                     // rows of a fragment fall in 8
+                                     // distinct groups of 4 banks
   static constexpr int kSmem = (BM + 2 * BN) * LD * 2;
 };
 
-// The mma.sync kernel of hd 16 and 32: warp w holds query rows
+// The mma.sync kernel of hd 16, 32 and 80: warp w holds query rows
 // [q0 + 16 w, q0 + 16 w + 16); in the mma
 // layouts a thread (g = lane / 4, t = lane % 4) holds rows g and g + 8 of
 // that slab and columns 2t, 2t + 1 of each 8-wide tile.
@@ -1064,7 +1068,7 @@ int launch_hd(int dtype, int B, int Hkv, const Params& p,
               cudaStream_t stream) {
   const int bh = B * p.H;
   if (dtype == 1) {
-    if constexpr (HD >= 64) {
+    if constexpr (HD % 64 == 0) {
       return run_wgmma<HD>(p, B, Hkv, stream);
     } else {
       using Tile = Bf16Tile<HD>;
@@ -1096,6 +1100,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     case 16: return launch_hd<16>(dtype, B, Hkv, p, st);
     case 32: return launch_hd<32>(dtype, B, Hkv, p, st);
     case 64: return launch_hd<64>(dtype, B, Hkv, p, st);
+    case 80: return launch_hd<80>(dtype, B, Hkv, p, st);
     case 128: return launch_hd<128>(dtype, B, Hkv, p, st);
     case 256: return launch_hd<256>(dtype, B, Hkv, p, st);
     default: return (int)cudaErrorInvalidValue;

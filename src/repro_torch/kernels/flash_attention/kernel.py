@@ -14,9 +14,10 @@ registers, v read transposed from shared memory) and overlap block n's
 softmax with block n - 1's p v; only the kv blocks on the causal
 diagonal, the window's edge or past S are masked; the loop visits only
 the blocks that the masks leave visible; and the heaviest q blocks are
-launched first.  hd 16 and 32 (no configuration of the repository uses
-them) run the first, mma.sync design, and fp32 plain FMAs: a dispatch by
-shape, with no fallback between the kernels.
+launched first.  hd 16, 32 and 80 run the first, mma.sync design (80 is
+stablelm-3b's head dim, which the wgmma tiles of 64 columns cannot take),
+and fp32 plain FMAs: a dispatch by shape, with no fallback between the
+kernels.
 
 The launcher takes q ``(B, H, T, hd)`` and k/v ``(B, Hkv, S, hd)`` with
 any strides whose last one is 1 and whose rows start on 16 bytes, so a
@@ -36,7 +37,7 @@ import torch
 from .. import _build
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash.cu"]
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # dtype codes of flash.cu
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -1,6 +1,6 @@
 """End-to-end training driver, the port of ``repro.launch.train``.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
         --steps 300 --batch 8 --seq 128 --reduced --ckpt-dir /tmp/run1 \\
         --device cpu
 
@@ -10,10 +10,9 @@ resume (implicit: the latest complete checkpoint in ``--ckpt-dir`` wins),
 straggler policy report at exit.  Every model is trained in float32, as
 the reference's driver does.
 
-Differences from the reference: ``--device``; the default ``--arch`` is
-granite-3-2b, since the reference's default (xlstm-125m) needs the xLSTM
-blocks of ROADMAP item G; the ``devices=`` of the first line counts the
-CUDA devices.  The weights are seeded with 0, as the reference's are.
+Differences from the reference: ``--device``; the ``devices=`` of the
+first line counts the CUDA devices.  The weights are seeded with 0, as
+the reference's are.
 """
 from __future__ import annotations
 
@@ -57,7 +56,7 @@ def build(args):
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--arch", default="xlstm-125m")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)

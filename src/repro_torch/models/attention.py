@@ -1,5 +1,5 @@
-"""GQA self-attention with causal / sliding-window masking and KV-cache
-decode, the port of ``repro.models.attention``.
+"""GQA self-attention with causal / sliding-window masking, cross-attention
+for the VLM and KV-cache decode, the port of ``repro.models.attention``.
 
 Prefill and a forward pass without gradients (:func:`attention`) run the
 exact attention of the reference on K8
@@ -19,7 +19,13 @@ Deviation from the reference: the cache is updated IN PLACE and returned
 (the reference returns new arrays), so a decode step writes one slot
 instead of copying the cache.  A caller that needs the old cache clones
 it first.  ``cache["pos"]`` is a 0-d int32 device tensor, so a decode step
-makes no host sync.  Cross-attention (the VLM) is ROADMAP item G.
+makes no host sync.
+
+Cross-attention (:func:`cross_attention`, the VLM's image layers) attends
+over the image embeddings with no RoPE and no mask; without gradients it
+runs on K8 with ``causal=False`` (T queries against the S image tokens,
+in prefill and in decode alike), under autograd the reference's
+``_sdpa(q, k, v, None)``.
 """
 from __future__ import annotations
 
@@ -221,3 +227,37 @@ def attention_decode(p: dict, x: torch.Tensor, cache: dict, *, n_heads: int,
     out = _sdpa(q, kk, vv, valid[None, None, None, :])
     out = out @ p["wo"].to(x.dtype)
     return out, {**cache, "pos": pos + 1}
+
+
+def init_cross_attention(d_model: int, n_heads: int, n_kv_heads: int,
+                         head_dim: int, dtype: torch.dtype,
+                         generator: torch.Generator, device) -> dict:
+    return init_attention(d_model, n_heads, n_kv_heads, head_dim, dtype,
+                          generator, device)
+
+
+def cross_attention(p: dict, x: torch.Tensor, kv_src: torch.Tensor, *,
+                    n_heads: int, n_kv_heads: int,
+                    head_dim: int) -> torch.Tensor:
+    """Cross-attention of x ``(B, T, D)`` over a static encoder sequence
+    ``kv_src`` ``(B, S, D)`` (the image patches): GQA, no RoPE, no mask.
+    On K8 (``causal=False``) unless autograd records the call: then the
+    reference's :func:`_sdpa` with no mask.
+
+    ``kv_src`` is cast to x's dtype before the projections, since K8 takes
+    one dtype.  The reference projects it in its own dtype; there a bf16
+    model carries fp32 activations (its embedding comes out in fp32), so
+    fp32 image embeddings meet fp32 queries, while the port keeps the
+    config's dtype and rounds them to bf16 first."""
+    b, t, _ = x.shape
+    kv_src = kv_src.to(x.dtype)
+    q = _split_heads(x @ p["wq"].to(x.dtype), n_heads, head_dim)
+    k = _split_heads(kv_src @ p["wk"].to(x.dtype), n_kv_heads, head_dim)
+    v = _split_heads(kv_src @ p["wv"].to(x.dtype), n_kv_heads, head_dim)
+    if needs_grad(q, k, v):
+        out = _sdpa(q, k, v, None)
+    else:
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=False)
+        out = out.transpose(1, 2).reshape(b, t, n_heads * head_dim)
+    return out @ p["wo"].to(x.dtype)

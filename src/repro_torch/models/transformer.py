@@ -10,12 +10,15 @@ sharding and memory hints for the scan and have no counterpart on one
 device.
 
 Modes: ``train`` (no cache), ``prefill`` (full sequence, fills caches),
-``decode`` (one token against caches).  Block kinds ``dense``, ``moe``
-(the ported MoE layer, its gathers on K6) and ``local`` run here, their
-prefill attention on K8, and ``rglru`` (the RG-LRU block, its prefill
-scan on K9); ``mlstm``, ``slstm`` and ``cross`` are ROADMAP item G.  The
-kernels are forward only: under autograd (``train.steps``' train step)
-every block runs the reference's training computation instead.
+``decode`` (one token against caches).  Block kinds: ``dense``, ``moe``
+(the ported MoE layer, its gathers on K6) and ``local``, their prefill
+attention on K8; ``cross`` (a dense block whose self-attention is
+followed by cross-attention over the image embeddings ``img``, on K8 in
+prefill and decode); ``rglru`` (the RG-LRU block, its prefill scan on
+K9); ``mlstm`` and ``slstm`` (the xLSTM blocks, plain PyTorch, with no
+MLP of their own).  The kernels are forward only: under autograd
+(``train.steps``' train step) every block runs the reference's training
+computation instead.
 """
 from __future__ import annotations
 
@@ -30,16 +33,11 @@ from .layers import (embed, init_embedding, init_mlp, init_rmsnorm, mlp,
                      rmsnorm, unembed)
 from .moe import init_moe, moe_apply
 
-_KINDS = ("dense", "moe", "local", "rglru")
-_UNPORTED = {"mlstm": "ROADMAP item G (the xLSTM blocks)",
-             "slstm": "ROADMAP item G (the xLSTM blocks)",
-             "cross": "ROADMAP item G (cross-attention of the VLM)"}
+_KINDS = ("dense", "moe", "local", "cross", "rglru", "mlstm", "slstm")
+_RECURRENT = ("rglru", "mlstm", "slstm")
 
 
 def _check_kind(kind: str) -> None:
-    if kind in _UNPORTED:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet: "
-                                  f"{_UNPORTED[kind]}")
     if kind not in _KINDS:
         raise ValueError(kind)
 
@@ -58,6 +56,12 @@ def _init_block(kind: str, cfg: ArchConfig, generator: torch.Generator,
     _check_kind(kind)
     dt, d = _dtype(cfg), cfg.d_model
     p = {"norm1": init_rmsnorm(d, dt, device)}
+    if kind == "mlstm":
+        p["rec"] = rec.init_mlstm(d, cfg.n_heads, dt, generator, device)
+        return p
+    if kind == "slstm":
+        p["rec"] = rec.init_slstm(d, cfg.n_heads, dt, generator, device)
+        return p
     if kind == "rglru":
         p["rec"] = rec.init_rglru(d, dt, generator, device)
     else:
@@ -68,6 +72,11 @@ def _init_block(kind: str, cfg: ArchConfig, generator: torch.Generator,
         p["ffn"] = init_moe(d, cfg.moe, dt, generator, device)
     else:
         p["ffn"] = init_mlp(d, cfg.d_ff, dt, generator, device, cfg.act)
+    if kind == "cross":
+        p["xattn"] = attn.init_cross_attention(d, cfg.n_heads,
+                                               cfg.n_kv_heads, cfg.hd, dt,
+                                               generator, device)
+        p["norm3"] = init_rmsnorm(d, dt, device)
     return p
 
 
@@ -105,23 +114,32 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 
 
 def _apply_block(p: dict, kind: str, cfg: ArchConfig, x: torch.Tensor, *,
-                 cache: dict | None = None, mode: str = "train"):
+                 img: torch.Tensor | None = None, cache: dict | None = None,
+                 mode: str = "train"):
     """Returns ``(x, new_cache, aux_loss)``; ``aux_loss`` is None for a
     block without one (the reference's zero), which saves a decode step
-    two launches a layer."""
+    two launches a layer.  ``img`` ``(B, n_img_tokens, d_model)``: the
+    image embeddings a ``cross`` block attends to."""
     _check_kind(kind)
     aux = None
     h = rmsnorm(p["norm1"], x)
     new_cache = cache
-    if kind == "rglru":
+    if kind in _RECURRENT:
         # prefill starts from the zero state, as the reference's does
-        r, st = rec.rglru_block(p["rec"], h,
-                                cache["rec"] if mode == "decode" else None)
-        if mode != "train":
+        st_in = cache["rec"] if mode == "decode" else None
+        if kind == "rglru":
+            r, st = rec.rglru_block(p["rec"], h, st_in)
+        elif kind == "mlstm":
+            r, st = rec.mlstm_block(p["rec"], h, cfg.n_heads, st_in,
+                                    want_state=(mode == "prefill"))
+        else:
+            r, st = rec.slstm_block(p["rec"], h, cfg.n_heads, st_in)
+        if mode != "train" and st is not None:
             new_cache = dict(cache, rec=st)
         x = x + r
-        return x + mlp(p["ffn"], rmsnorm(p["norm2"], x), cfg.act), \
-            new_cache, aux
+        if kind == "rglru":
+            x = x + mlp(p["ffn"], rmsnorm(p["norm2"], x), cfg.act)
+        return x, new_cache, aux
     window = cfg.local_window if kind == "local" else cfg.window
     kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
               head_dim=cfg.hd, rope_theta=cfg.rope_theta, window=window)
@@ -134,6 +152,14 @@ def _apply_block(p: dict, kind: str, cfg: ArchConfig, x: torch.Tensor, *,
     else:
         a = attn.attention(p["attn"], h, **kw)
     x = x + a
+    if kind == "cross":
+        if img is None:
+            raise ValueError("a cross block needs img, the image "
+                             "embeddings (B, n_img_tokens, d_model)")
+        x = x + attn.cross_attention(p["xattn"], rmsnorm(p["norm3"], x), img,
+                                     n_heads=cfg.n_heads,
+                                     n_kv_heads=cfg.n_kv_heads,
+                                     head_dim=cfg.hd)
     h2 = rmsnorm(p["norm2"], x)
     if kind == "moe":
         f, moe_aux = moe_apply(p["ffn"], h2, cfg.moe)
@@ -177,13 +203,13 @@ def _put(tree: dict, group: str, index, value) -> None:
 
 
 def _run_layers(params: dict, cfg: ArchConfig, x: torch.Tensor,
-                cache: dict | None, mode: str):
+                img: torch.Tensor | None, cache: dict | None, mode: str):
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = _empty_like_groups(cfg) if cache is not None else None
     for group, index, kind, bcfg in _blocks(cfg):
         c = _get(cache, group, index) if cache is not None else None
         x, c2, aux = _apply_block(_get(params, group, index), kind, bcfg, x,
-                                  cache=c, mode=mode)
+                                  img=img, cache=c, mode=mode)
         if aux is not None:
             aux_total = aux_total + aux
         if cache is not None:
@@ -192,15 +218,17 @@ def _run_layers(params: dict, cfg: ArchConfig, x: torch.Tensor,
 
 
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor | None = None,
-            embeds: torch.Tensor | None = None, cache: dict | None = None,
+            embeds: torch.Tensor | None = None,
+            img: torch.Tensor | None = None, cache: dict | None = None,
             logits_last_only: bool = False):
     """Full-sequence forward; mode ``train`` without a cache, ``prefill``
-    with one.  ``logits_last_only`` slices the residual stream to the last
-    position before the unembed (prefill needs only next-token logits).
-    Returns ``(logits, aux)`` or ``(logits, aux, new_cache)``."""
+    with one.  ``img``: the image embeddings of the ``cross`` blocks.
+    ``logits_last_only`` slices the residual stream to the last position
+    before the unembed (prefill needs only next-token logits).  Returns
+    ``(logits, aux)`` or ``(logits, aux, new_cache)``."""
     mode = "train" if cache is None else "prefill"
     x = embed(params["embed"], tokens) if cfg.embed_inputs else embeds
-    x, aux_total, new_cache = _run_layers(params, cfg, x, cache, mode)
+    x, aux_total, new_cache = _run_layers(params, cfg, x, img, cache, mode)
     if logits_last_only:
         x = x[:, -1:]
     logits = unembed(params["embed"], rmsnorm(params["final_norm"], x))
@@ -215,6 +243,11 @@ def _block_cache(kind: str, cfg: ArchConfig, batch: int, seq_len: int,
     if kind == "rglru":
         return {"rec": rec.rglru_init_state(batch, cfg.d_model, _dtype(cfg),
                                             device)}
+    if kind == "mlstm":
+        return {"rec": rec.mlstm_init_state(batch, cfg.d_model, cfg.n_heads,
+                                            _dtype(cfg), device)}
+    if kind == "slstm":
+        return {"rec": rec.slstm_init_state(batch, cfg.d_model, device)}
     if kind == "local":
         S = min(seq_len, cfg.local_window or seq_len)
     else:
@@ -249,12 +282,14 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
 
 def decode_step(params: dict, cfg: ArchConfig, cache: dict,
                 token: torch.Tensor | None = None,
-                embeds: torch.Tensor | None = None):
-    """One decode step.  token ``(B, 1)`` int (or embeds ``(B, 1, D)``).
-    Returns ``(logits (B, 1, V), new_cache)``; the attention caches are
-    updated in place, the recurrent states replaced."""
+                embeds: torch.Tensor | None = None,
+                img: torch.Tensor | None = None):
+    """One decode step.  token ``(B, 1)`` int (or embeds ``(B, 1, D)``);
+    ``img`` as in :func:`forward`.  Returns ``(logits (B, 1, V),
+    new_cache)``; the attention caches are updated in place, the
+    recurrent states replaced."""
     x = embed(params["embed"], token) if cfg.embed_inputs else embeds
-    x, _, new_cache = _run_layers(params, cfg, x, cache, "decode")
+    x, _, new_cache = _run_layers(params, cfg, x, img, cache, "decode")
     return unembed(params["embed"], rmsnorm(params["final_norm"], x)), \
         new_cache
 
@@ -279,14 +314,17 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor | None = None,
                 embeds: torch.Tensor | None = None,
+                img: torch.Tensor | None = None,
                 cache: dict | None = None, logits_last_only: bool = False):
         return forward(self.params, self.cfg, tokens=tokens, embeds=embeds,
-                       cache=cache, logits_last_only=logits_last_only)
+                       img=img, cache=cache,
+                       logits_last_only=logits_last_only)
 
     def decode(self, cache: dict, token: torch.Tensor | None = None,
-               embeds: torch.Tensor | None = None):
+               embeds: torch.Tensor | None = None,
+               img: torch.Tensor | None = None):
         return decode_step(self.params, self.cfg, cache, token=token,
-                           embeds=embeds)
+                           embeds=embeds, img=img)
 
     def init_cache(self, batch: int, seq_len: int) -> dict:
         return init_cache(self.cfg, batch, seq_len, self.device)

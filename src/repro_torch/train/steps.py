@@ -12,7 +12,8 @@ the reference's training computation (``_sdpa`` / ``_sdpa_chunked``, the
 associative RG-LRU scan, the MoE layer's plain gathers), not K6, K8 or K9,
 which have no backward.  Prefill and decode run under ``torch.no_grad``
 and launch the kernels.  ``grad_specs`` (a sharding constraint of the
-gradients) waits for the port of ``launch/sharding.py`` (ROADMAP item G).
+gradients) waits for the port of ``launch/sharding.py`` (ROADMAP item
+G.4).
 """
 from __future__ import annotations
 
@@ -40,12 +41,6 @@ class TrainState:
     step: torch.Tensor
 
 
-def _no_image_inputs(cfg: ArchConfig) -> None:
-    if cfg.n_img_tokens:
-        raise NotImplementedError("image inputs (the VLM's cross-attention) "
-                                  "are ROADMAP item G")
-
-
 def init_train_state(generator: torch.Generator, cfg: ArchConfig,
                      opt_cfg: AdamWConfig, device=None) -> TrainState:
     """Random weights from ``generator`` (``models.transformer.init_params``)
@@ -56,6 +51,16 @@ def init_train_state(generator: torch.Generator, cfg: ArchConfig,
                       torch.zeros((), dtype=torch.int32, device=device))
 
 
+def _inputs(cfg: ArchConfig, batch: dict, token_key: str) -> dict:
+    """The model's inputs of ``batch``: ``tokens`` (as ``token_key``) or
+    ``embeds``, and ``img`` where the config has image tokens."""
+    kwargs = ({token_key: batch["tokens"]} if cfg.embed_inputs
+              else {"embeds": batch["embeds"]})
+    if cfg.n_img_tokens:
+        kwargs["img"] = batch["img"]
+    return kwargs
+
+
 def _on(batch: dict, device: torch.device) -> dict:
     """The batch's arrays (numpy or tensors) as tensors on ``device``."""
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
@@ -64,11 +69,9 @@ def _on(batch: dict, device: torch.device) -> dict:
 def loss_fn(params, cfg: ArchConfig, batch: dict, aux_weight: float = 0.01):
     """Next-token cross entropy (fp32 logits) + MoE balance aux.  Returns
     ``(loss, {"nll", "aux"})``; ``batch`` holds tensors on the parameters'
-    device (``tokens`` or ``embeds``, ``labels``, optionally ``mask``)."""
-    _no_image_inputs(cfg)
-    kwargs = ({"tokens": batch["tokens"]} if cfg.embed_inputs
-              else {"embeds": batch["embeds"]})
-    logits, aux = forward(params, cfg, **kwargs)
+    device (``tokens`` or ``embeds``, ``img`` where the config has image
+    tokens, ``labels``, optionally ``mask``)."""
+    logits, aux = forward(params, cfg, **_inputs(cfg, batch, "tokens"))
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
@@ -94,8 +97,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
     if grad_specs is not None:
         raise NotImplementedError(
             "grad_specs (sharded gradients) waits for the port of "
-            "launch/sharding.py, ROADMAP item G")
-    _no_image_inputs(cfg)
+            "launch/sharding.py, ROADMAP item G.4")
     schedule_kw = schedule_kw or {"warmup": 100, "total": 10_000}
     acc_dt = getattr(torch, accum_dtype)
 
@@ -147,25 +149,21 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
 
 def make_prefill_step(cfg: ArchConfig):
     """prefill(params, batch, cache) -> (logits, cache)."""
-    _no_image_inputs(cfg)
-
     @torch.no_grad()
     def prefill(params, batch, cache):
-        kwargs = ({"tokens": batch["tokens"]} if cfg.embed_inputs
-                  else {"embeds": batch["embeds"]})
         logits, _, new_cache = forward(params, cfg, cache=cache,
-                                       logits_last_only=True, **kwargs)
+                                       logits_last_only=True,
+                                       **_inputs(cfg, batch, "tokens"))
         return logits, new_cache
     return prefill
 
 
 def make_decode_step(cfg: ArchConfig):
-    """decode(params, cache, batch) -> (logits, cache)."""
-    _no_image_inputs(cfg)
-
+    """decode(params, cache, batch) -> (logits, cache); ``batch`` holds
+    the step's ``tokens`` (or ``embeds``) and, where the config has image
+    tokens, ``img``."""
     @torch.no_grad()
     def decode(params, cache, batch):
-        kwargs = ({"token": batch["tokens"]} if cfg.embed_inputs
-                  else {"embeds": batch["embeds"]})
-        return decode_step(params, cfg, cache, **kwargs)
+        return decode_step(params, cfg, cache,
+                           **_inputs(cfg, batch, "token"))
     return decode

@@ -159,6 +159,26 @@ def _input_rows(kind: str, plan) -> int:
     return plan.cap
 
 
+def _end_failed_capture(dev: torch.device, graph, pool) -> None:
+    """Ends a capture whose body raised.  ``CUDAGraph.capture_end`` then
+    raises (the capture is invalidated) before it ends the allocator's
+    routing to the graph's pool ``pool``; left on, the allocator counts a
+    capture as underway for the rest of the process, defers every block
+    freed with a stream use until none is, and so never reuses or
+    releases them again.  So the routing is ended and the pool released
+    here."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    try:
+        graph.capture_end()
+    except RuntimeError:
+        pass
+    try:
+        torch._C._cuda_endAllocateToPool(index, pool)
+    except RuntimeError:      # capture_end had ended the routing
+        return
+    torch._C._cuda_releasePool(index, pool)
+
+
 def _tensor_bytes(obj) -> int:
     """Bytes of the tensors in ``obj`` (a tensor, or dataclasses and
     tuples of them)."""
@@ -233,14 +253,17 @@ class _Executor:
         reserved = torch.cuda.memory_reserved(dev)
         counted = dict(LAUNCHES)
         graph = torch.cuda.CUDAGraph()
+        pool = torch.cuda.graph_pool_handle()
         capture = torch.cuda.Stream(dev)
         try:
             with torch.cuda.stream(capture):
-                graph.capture_begin()
+                graph.capture_begin(pool=pool)
                 try:
                     out = self._body()
-                finally:
-                    graph.capture_end()
+                except BaseException:
+                    _end_failed_capture(dev, graph, pool)
+                    raise
+                graph.capture_end()
         finally:
             # the capture recorded these launches; it made none of them
             recorded = {k: n - counted[k] for k, n in LAUNCHES.items()}

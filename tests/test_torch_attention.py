@@ -77,7 +77,11 @@ def test_plain_matches_ref_and_pallas(dname, b, h, hkv, t, hd, causal,
 @pytest.mark.parametrize("t,s,hd,causal,window", [
     (100, 100, 32, True, None), (77, 99, 16, True, None),
     (130, 40, 64, False, 100), (1000, 1000, 16, True, 300),
-    (1, 5, 16, True, None)])
+    (1, 5, 16, True, None),
+    # the cross-attention's shapes: non-causal, T != S and T = 1 against a
+    # ragged number of image tokens; stablelm-3b's head dim 80
+    (33, 200, 32, False, None), (1, 200, 32, False, None),
+    (77, 77, 80, True, None), (9, 130, 80, False, None)])
 def test_plain_takes_any_length(dname, t, s, hd, causal, window):
     """Odd T and S, T != S (the Pallas kernel asserts block multiples)."""
     rng = np.random.default_rng(t + s)
@@ -148,6 +152,11 @@ def test_kernel_launcher_rejects_what_k8_does_not_take():
         kernel.flash_attention_cuda(torch.zeros(1, 2, 8, 24),
                                     torch.zeros(1, 2, 8, 24),
                                     torch.zeros(1, 2, 8, 24))
+    # head dim 80 (stablelm-3b) passes the shape checks; here only the
+    # device is refused
+    q80 = torch.zeros(1, 2, 8, 80)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.flash_attention_cuda(q80, q80, q80)
     with pytest.raises(ValueError, match="fp32 or bf16"):
         kernel.flash_attention_cuda(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="multiple of Hkv"):
@@ -257,3 +266,80 @@ def test_quant_rows_and_causal_mask_match_jax():
         np.testing.assert_array_equal(
             pattn.causal_mask(t, s, off, w).numpy(),
             np.asarray(jattn.causal_mask(t, s, off, w)))
+
+
+# -------------------------------------------------------- cross-attention
+
+CROSS_KW = dict(n_heads=H, n_kv_heads=HKV, head_dim=HD)
+
+
+@pytest.mark.parametrize("t,s", [(5, 8), (1, 8), (12, 3)])
+def test_cross_attention_matches_jax(t, s):
+    """No RoPE, no mask, GQA; T != S and decode's T = 1."""
+    jp, pp = _weights(3)
+    rng = np.random.default_rng(t + s)
+    x = rng.standard_normal((2, t, D)).astype(np.float32)
+    img = rng.standard_normal((2, s, D)).astype(np.float32)
+    want = jattn.cross_attention(jp, jnp.asarray(x), jnp.asarray(img),
+                                 **CROSS_KW)
+    got = pattn.cross_attention(pp, torch.from_numpy(x),
+                                torch.from_numpy(img), **CROSS_KW)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
+
+
+@pytest.mark.parametrize("t", [7, 1])
+def test_cross_attention_runs_k8_non_causal(monkeypatch, t):
+    """Without gradients the product goes through K8's wrapper with
+    ``causal=False`` and equals the reference's ``_sdpa(q, k, v, None)``;
+    under autograd K8 is not called and the gradients are the
+    reference's."""
+    jp, pp = _weights(4)
+    rng = np.random.default_rng(t)
+    x = rng.standard_normal((2, t, D)).astype(np.float32)
+    img = rng.standard_normal((2, 11, D)).astype(np.float32)
+    calls = []
+
+    def counting(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape), kw))
+        return ops.flash_attention(q, k, v, **kw)
+    monkeypatch.setattr(pattn, "flash_attention", counting)
+    got = pattn.cross_attention(pp, torch.from_numpy(x),
+                                torch.from_numpy(img), **CROSS_KW)
+    assert calls == [((2, H, t, HD), (2, HKV, 11, HD), {"causal": False})]
+    xs, ims = torch.from_numpy(x), torch.from_numpy(img)
+    q = pattn._split_heads(xs @ pp["wq"], H, HD)
+    k = pattn._split_heads(ims @ pp["wk"], HKV, HD)
+    v = pattn._split_heads(ims @ pp["wv"], HKV, HD)
+    want = pattn._sdpa(q, k, v, None) @ pp["wo"]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **MODEL_TOL)
+
+    def jloss(p, x, img):
+        return jnp.sum(jnp.sin(jattn.cross_attention(p, x, img, **CROSS_KW)))
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(jp, jnp.asarray(x),
+                                                jnp.asarray(img))
+    leaves = {k: v.clone().requires_grad_(True) for k, v in pp.items()}
+    px, pimg = xs.clone().requires_grad_(True), ims.clone().requires_grad_(
+        True)
+    loss = torch.sum(torch.sin(pattn.cross_attention(leaves, px, pimg,
+                                                     **CROSS_KW)))
+    names = sorted(leaves)
+    grads = torch.autograd.grad(loss, [leaves[k] for k in names] + [px, pimg])
+    assert len(calls) == 1
+    for g, w in zip(grads, [jgrads[0][k] for k in names] + list(jgrads[1:])):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_cross_attention_casts_the_image_to_the_models_dtype():
+    """A bf16 model fed fp32 image embeddings: K8 takes one dtype, so the
+    embeddings are cast before the projections."""
+    _, pp = _weights(5)
+    pb = {k: v.to(torch.bfloat16) for k, v in pp.items()}
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((1, 3, D)).astype(
+        np.float32)).to(torch.bfloat16)
+    img = torch.from_numpy(rng.standard_normal((1, 6, D)).astype(np.float32))
+    got = pattn.cross_attention(pb, x, img, **CROSS_KW)
+    want = pattn.cross_attention(pb, x, img.to(torch.bfloat16), **CROSS_KW)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)

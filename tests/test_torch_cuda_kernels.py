@@ -392,6 +392,15 @@ FLASH_CASES = [
     ("bf16", 1, 4, 2, 300, 100, 128, True, 50),        # rows >= 149 see
     ("bf16", 1, 4, 2, 300, 100, 64, True, 50),         # no key
     ("bf16", 1, 4, 1, 300, 100, 256, True, 50),
+    # head dim 80 (stablelm-3b) on the mma.sync tile, and in fp32
+    ("bf16", 2, 32, 32, 300, 300, 80, True, None),
+    ("bf16", 1, 8, 2, 100, 177, 80, False, None),
+    ("bf16", 1, 4, 4, 517, 517, 80, True, 45),
+    ("fp32", 1, 4, 2, 77, 99, 80, True, None),
+    # the VLM's cross-attention: non-causal over 1600 image tokens (12.5
+    # kv blocks of 128), prefill T != S and decode T = 1
+    ("bf16", 2, 32, 8, 300, 1600, 128, False, None),
+    ("bf16", 4, 32, 8, 1, 1600, 128, False, None),
 ]
 
 
@@ -456,6 +465,66 @@ def test_cuda_reduced_yi_forward_launches_k8_once_a_layer(cuda_device):
         rt.use_kernel_dataplane(None)
     torch.testing.assert_close(logits[:, -1], want[:, -1], rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_reduced_vision_launches_k8_for_self_and_cross(cuda_device):
+    """A reduced llama-3.2-vision-11b on the card: a prefill launches K8
+    once a layer and once more a cross block, a decode step once a cross
+    block (its cross-attention over the image tokens), and the logits
+    match the plain versions'."""
+    import repro_torch as rt
+    from repro_torch.models.transformer import Transformer
+
+    cfg = rt.get_config("llama-3.2-vision-11b").reduced()
+    n_cross = cfg.pattern.count("cross") * cfg.n_layers // len(cfg.pattern)
+    model = Transformer(cfg, seed=4)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    img = torch.randn((2, cfg.n_img_tokens, cfg.d_model), generator=g,
+                      device=cuda_device)
+    toks = torch.arange(40, device=cuda_device).reshape(2, 20) % cfg.vocab
+    ops.reset_launches()
+    logits, _, cache = model(toks, img=img, cache=model.init_cache(2, 24),
+                             logits_last_only=True)
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers + n_cross
+    ops.reset_launches()
+    model.decode(cache, toks[:, :1], img=img)
+    assert ops.LAUNCHES["flash_attention"] == n_cross
+    try:
+        rt.use_kernel_dataplane(False)
+        want, _ = model(toks, img=img)
+    finally:
+        rt.use_kernel_dataplane(None)
+    torch.testing.assert_close(logits[:, -1], want[:, -1], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dname", ["fp32", "bf16"])
+def test_cuda_model_at_head_dim_80_launches_k8(cuda_device, dname):
+    """Reduced stablelm-3b at its published head dim of 80: one prefill
+    launches K8 once a layer, and the last logits match the plain
+    versions' (relative Frobenius, 1e-4 in fp32, 2e-2 in bf16 as the
+    serving checks)."""
+    import repro_torch as rt
+    from repro_torch.models.transformer import Transformer
+
+    cfg = rt.get_config("stablelm-3b").reduced().with_(
+        head_dim=80, dtype={"fp32": "float32", "bf16": "bfloat16"}[dname])
+    model = Transformer(cfg, seed=6)
+    toks = torch.arange(66, device=cuda_device).reshape(2, 33) % cfg.vocab
+    ops.reset_launches()
+    logits, _, _ = model(toks, cache=model.init_cache(2, 33),
+                         logits_last_only=True)
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    try:
+        rt.use_kernel_dataplane(False)
+        want, _ = model(toks)
+    finally:
+        rt.use_kernel_dataplane(None)
+    a, b = logits[:, -1].float(), want[:, -1].float()
+    rel = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+    assert rel <= (1e-4 if dname == "fp32" else 2e-2), rel
 
 
 @pytest.mark.gpu

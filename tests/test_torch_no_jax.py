@@ -117,7 +117,18 @@ assert inj.injected == 1
 inj.uninstall()
 assert ChaoticMachine(tuner.SyntheticTimingBackend(),
                       FaultSchedule()).true_params().alpha > 0
-assert train_cli.parser().parse_args([]).arch == "granite-3-2b"
+assert train_cli.parser().parse_args([]).arch == "xlstm-125m"
+from repro_torch.train import make_decode_step, make_prefill_step
+for arch in ("xlstm-125m", "llama-3.2-vision-11b"):
+    cfg = rt.get_config(arch).reduced()
+    model = Transformer(cfg, device="cpu")
+    img = torch.randn(2, cfg.n_img_tokens, cfg.d_model)
+    batch = {"tokens": torch.arange(10).reshape(2, 5), "img": img}
+    logits, cache = make_prefill_step(cfg)(model.params, batch,
+                                           model.init_cache(2, 6))
+    logits, cache = make_decode_step(cfg)(
+        model.params, cache, {"tokens": batch["tokens"][:, :1], "img": img})
+    assert logits.shape == (2, 1, cfg.vocab)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)

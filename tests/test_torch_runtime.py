@@ -15,8 +15,9 @@ round-trip bit for bit in the port's store; a bfloat16 leaf the reference
 writes (NumPy saves it as 2-byte void records) reads bit for bit in the
 port, while the reference's own ``restore`` refuses it (``jax.device_put``
 takes no void array).  The substrate's tests build their train state from
-reduced granite-3-2b, where the reference's take reduced xlstm-125m
-(ROADMAP item G).
+reduced granite-3-2b, where the reference's take reduced xlstm-125m; the
+training driver's test runs its default arch, xlstm-125m, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -875,7 +876,7 @@ def test_train_cli_fails_resumes_and_lands_on_the_uninterrupted_run(
         tmp_path, child_env):
     full = _train_cli(child_env, str(tmp_path / "full"))
     assert full.returncode == 0, full.stderr
-    assert "arch=granite-3-2b layers=2 d=64 vocab=256" in full.stdout
+    assert "arch=xlstm-125m layers=8 d=64 vocab=256" in full.stdout
     assert "done: 8 steps" in full.stdout
     failed = _train_cli(child_env, str(tmp_path / "ft"), "--fail-at", "5")
     assert failed.returncode != 0
@@ -890,7 +891,8 @@ def test_train_cli_fails_resumes_and_lands_on_the_uninterrupted_run(
         full_hist = json.load(f)
     assert [r["loss"] for r in full_hist[3:]] == pytest.approx(
         [r["loss"] for r in hist], rel=1e-6)
-    template = _state()
+    template = init_train_state(torch.Generator().manual_seed(0),
+                                get_config("xlstm-125m").reduced(), OPT, "cpu")
     a, _ = restore(template, 8, str(tmp_path / "full"))
     b, _ = restore(template, 8, str(tmp_path / "ft"))
     for x, y in zip(tree_leaves(a), tree_leaves(b)):

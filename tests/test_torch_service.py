@@ -929,6 +929,37 @@ def test_a_failing_capture_raises_without_fallback(cuda_device, monkeypatch):
 
 
 @pytest.mark.gpu
+def test_a_failing_capture_leaves_the_cache_releasable(cuda_device,
+                                                       monkeypatch):
+    """After a capture that failed, a block freed with a stream use still
+    goes back to the allocator's cache and ``empty_cache`` releases it:
+    the failed capture no longer leaves the allocator counting a capture
+    as underway (which deferred such blocks for the rest of the process,
+    until the card ran out of memory)."""
+    body = t_service._SHARD["gatherv"]
+    monkeypatch.setitem(t_service._SHARD, "gatherv",
+                        lambda *a: (torch.cuda.synchronize(), body(*a))[1])
+    svc = tt.PlannerService(mesh=rt.LocalMesh(4, device=cuda_device),
+                            quantum=1)
+    with pytest.raises(RuntimeError):
+        svc.gatherv([np.ones((s, 4), np.float32) for s in (3, 1, 4, 1)],
+                    root=0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    side = torch.cuda.Stream()
+    x = torch.zeros(256 << 20, dtype=torch.uint8, device=cuda_device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        x.add_(1)
+    x.record_stream(side)
+    del x
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() <= base
+
+
+@pytest.mark.gpu
 def test_a_capture_keeps_the_allocator_cache(cuda_device):
     """Building an executor does not empty the allocator's cache (a build
     between two decode steps must not release the blocks the decode loop

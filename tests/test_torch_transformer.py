@@ -13,7 +13,7 @@ layers (two periods and the tail of two RG-LRU blocks), at
 ``rtol=atol=1e-4`` on the logits: float32 products summed in another
 order through a few layers, on logits of order 1–10.  The caches are
 compared element for element at the same tolerance, and the greedy tokens
-of ``serve_requests`` exactly (random weights leave no near ties).
+of ```serve_requests`` exactly (random weights leave no near ties).
 """
 import dataclasses
 
@@ -33,7 +33,7 @@ from repro.train import make_prefill_step as jax_make_prefill
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import ArchConfig, get_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.core.carry import (cache_from_numpy,  # noqa: E402
                                     model_params_from_numpy)
 from repro_torch.launch import serve  # noqa: E402
@@ -44,6 +44,7 @@ from repro_torch.models.transformer import (Transformer,  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 ARCHS = ["yi-6b", "granite-3-2b", "mixtral-8x7b", "recurrentgemma-2b"]
+ALL_ARCHS = list(ARCH_IDS)
 
 
 def _jax_params(cfg, seed: int = 0) -> dict:
@@ -196,21 +197,7 @@ def test_pop_batch_and_route_step_match_jax():
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("kind,item", [("mlstm", "item G"),
-                                       ("slstm", "item G"),
-                                       ("cross", "item G")])
-def test_unported_kind_raises_and_names_its_roadmap_item(kind, item):
-    cfg = ArchConfig(name="x", n_layers=2, d_model=32, n_heads=2,
-                     n_kv_heads=2, d_ff=64, vocab=16, pattern=("dense", kind),
-                     head_dim=16, dtype="float32")
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match=item):
-        init_params(cfg, gen, "cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        init_cache(cfg, 1, 4, "cpu")
-
-
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_init_params_has_the_reference_layout(arch):
     """The port's random weights have the carried reference's tree,
     shapes and dtypes, at the config's own dtype (bf16 here)."""
@@ -289,8 +276,7 @@ def test_layers_match_jax():
         rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "granite-3-2b",
-                                  "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_configs_match_jax(arch):
     want = dataclasses.asdict(jax_get_config(arch))
     got = dataclasses.asdict(get_config(arch))
