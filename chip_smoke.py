@@ -228,13 +228,30 @@ Phases, in order; any failure raises and the exit code is nonzero:
    layers, each against the plain versions and ``forward`` under phase
    8's gate.  In (a)-(c)
    every sLSTM ``rh`` is scaled to its fan-in (``slstm_fan_in``): at the
-   reference's init the sLSTM recurrence is chaotic.
+   reference's init the sLSTM recurrence is chaotic;
+14. the sharding layer, TF32 off: (a) granite-3-2b at full width and
+   depth in fp32, a batch of 2 x 512 from the seed, ``REMAT_STEPS`` train
+   steps from the seed's weights under each ``remat`` (``none``, ``full``,
+   ``dots``): the first step's loss and gradient norm of ``full`` and
+   ``dots`` within 1e-6 relative of ``none`` (and whether bitwise), each
+   mode's peak memory and ms per step; then ``full`` at 24 x 512, a
+   batch whose activations ``none`` cannot hold (its need reckoned from
+   its own growth at 2 x 512); (b) a one-rank NCCL process
+   group made and destroyed in the phase and a ``(1, 1)`` CUDA
+   ``DeviceMesh`` ``("data", "model")``: the same model's steps on a
+   DTensor state under ``grad_shard,fsdp_gather`` (``launch.specs``)
+   against the same steps unsharded, within 12b's limits (loss and
+   gradient norm 1e-5 relative at every step, every parameter and mu
+   leaf 1e-4 relative Frobenius after the last), and its ms per step
+   against the unsharded ``full``: on size-1 mesh dims no placement moves
+   a byte, so the difference is what DTensor's dispatch costs.  K6, K8
+   and K9 must not launch.
 
 Every phase runs under a watchdog (``faulthandler.dump_traceback_later``
 with the phase's limit in ``PHASE_LIMIT_S``): a phase that hangs ends
 the script with every thread's stack and exit code 1.  The line before
 the last is a JSON object with one entry per kernel (K1–K9), launches
-counted over phases 3 and 5–13; the last is ``{"ok": true, "device":
+counted over phases 3 and 5–14; the last is ``{"ok": true, "device":
 {...}}``.
 """
 from __future__ import annotations
@@ -356,11 +373,22 @@ VLM_ARCH = "llama-3.2-vision-11b"
 ARCH_B, ARCH_T = 4, 1024
 ARCHS_13E = (("stablelm-3b", None), ("musicgen-large", None),
              ("llama3-405b", 4))
+# phase 14: the sharding layer.  14a: granite-3-2b in fp32 at full width
+# and depth, REMAT_STEPS steps at REMAT_B x REMAT_T under each remat (the
+# first step compared, the rest timed), then "full" at REMAT_BIG_B, a
+# batch whose activations "none" cannot hold on the card (checked in the
+# run against none's own growth a sequence at REMAT_B); 14b:
+# its steps on a (1, 1) CUDA mesh under SHARDED_VARIANT against the same
+# steps unsharded, within 12b's limits
+REMAT_MODES, REMAT_RTOL = ("none", "full", "dots"), 1e-6
+REMAT_B, REMAT_T, REMAT_BIG_B, REMAT_STEPS = 2, 512, 24, 4
+SHARDED_VARIANT, SHARDED_STEPS = "grad_shard,fsdp_gather", 3
 # the hang watchdog: each phase's limit in seconds, about three times its
 # longest measured time on the H100 (at least two minutes; phase 1 builds
 # the kernels, in seconds here, but nvcc's time varies between machines)
 PHASE_LIMIT_S = {1: 300, 2: 120, 3: 120, 4: 120, 5: 450, 6: 120, 7: 120,
-                 8: 120, 9: 150, 10: 120, 11: 500, 12: 300, 13: 450}
+                 8: 120, 9: 150, 10: 120, 11: 500, 12: 300, 13: 450,
+                 14: 240}
 CSRC = "src/repro_torch/kernels/ragged_gather/csrc/"
 SOURCES = {"slab_extract": CSRC + "slab.cu", "slab_merge": CSRC + "slab.cu",
            "slab_step": CSRC + "slab.cu",
@@ -3786,6 +3814,222 @@ def model_zoo_phase(dev, main_path_launches) -> None:
     log(f"  phase 13e s: {time.perf_counter() - t1:.1f}")
 
 
+# ---------------------------------------------------------------- phase 14
+
+def _granite_fp32():
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig
+
+    return (get_config(TRAIN_ARCH).with_(dtype="float32"),
+            AdamWConfig(lr=TRAIN_LR))
+
+
+def _seed_batch(cfg, batch_size: int, seq: int, dev) -> dict:
+    rng = np.random.default_rng(SEED)
+    return {k: torch.from_numpy(rng.integers(0, cfg.vocab, (batch_size, seq))
+                                .astype(np.int32)).to(dev)
+            for k in ("tokens", "labels")}
+
+
+def _run_steps(step_fn, state, batch: dict, n: int):
+    """``n`` steps on ``batch``; each step's loss and gradient norm and its
+    host-clock time, the step ending in a synchronise."""
+    metrics, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    return state, metrics, ms
+
+
+def remat_path(dev) -> dict:
+    """Phase 14a: granite-3-2b's train step under each remat at REMAT_B x
+    REMAT_T from the seed's weights, then "full" at REMAT_BIG_B."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.train import init_train_state, make_train_step
+
+    base, opt = _granite_fp32()
+    runs = [(m, REMAT_B) for m in REMAT_MODES] + [("full", REMAT_BIG_B)]
+    rows = {}
+    for mode, batch_size in runs:
+        cfg = base.with_(remat=mode)
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(torch.Generator(dev).manual_seed(SEED), cfg,
+                                 opt, dev)
+        state_bytes = torch.cuda.memory_allocated()
+        n_params = sum(t.numel() for t in tree_leaves(state.params))
+        batch = _seed_batch(cfg, batch_size, REMAT_T, dev)
+        state, metrics, ms = _run_steps(make_train_step(cfg, opt), state,
+                                        batch, REMAT_STEPS)
+        label = f"{mode}@{batch_size}x{REMAT_T}"
+        rows[label] = {
+            "remat": mode, "batch": batch_size, "seq": REMAT_T,
+            "params": n_params, "state_bytes": state_bytes,
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+            "first": metrics[0], "step_ms": ms,
+            "median_step_ms_after_first": float(np.median(ms[1:]))}
+        r = rows[label]
+        over = (r["peak_allocated_bytes"] - state_bytes) / 1e9
+        log(f"  14a remat {label}: peak {r['peak_allocated_bytes'] / 1e9:.2f} "
+            f"GB allocated ({over:.2f} GB over params + mu + nu "
+            f"{state_bytes / 1e9:.2f} GB), "
+            f"{r['median_step_ms_after_first']:.1f} ms a step (median after "
+            f"the first), first step loss {metrics[0]['loss']:.7f} grad norm "
+            f"{metrics[0]['grad_norm']:.7f}")
+        del state
+    none = rows[f"none@{REMAT_B}x{REMAT_T}"]
+    # what none would hold at the big batch: the state, the gradients (one
+    # fp32 copy of the parameters) and its activations grown linearly
+    grads = 4 * none["params"]
+    per_seq = (none["peak_allocated_bytes"] - none["state_bytes"]
+               - grads) / REMAT_B
+    need = none["state_bytes"] + grads + per_seq * REMAT_BIG_B
+    card = torch.cuda.get_device_properties(dev).total_memory
+    big = rows[f"full@{REMAT_BIG_B}x{REMAT_T}"]
+    big["none_would_need_bytes"] = need
+    log(f"  14a none at {REMAT_BIG_B} x {REMAT_T} would need {need / 1e9:.1f} "
+        f"GB ({per_seq / 1e9:.2f} GB of activations a sequence over the "
+        f"state and the gradients) of the card's {card / 1e9:.1f} GB; full "
+        f"holds it in {big['peak_allocated_bytes'] / 1e9:.2f} GB")
+    if need <= card:
+        raise AssertionError(f"14a: none would hold {REMAT_BIG_B} x "
+                             f"{REMAT_T} ({need / 1e9:.1f} GB): pick a "
+                             f"larger batch")
+    for mode in ("full", "dots"):
+        r = rows[f"{mode}@{REMAT_B}x{REMAT_T}"]
+        r["rel_to_none"] = {k: abs(r["first"][k] - none["first"][k])
+                            / abs(none["first"][k])
+                            for k in ("loss", "grad_norm")}
+        r["bitwise_to_none"] = r["first"] == none["first"]
+        r["time_vs_none"] = (r["median_step_ms_after_first"]
+                             / none["median_step_ms_after_first"])
+        r["peak_vs_none"] = (r["peak_allocated_bytes"]
+                             / none["peak_allocated_bytes"])
+        rel = r["rel_to_none"]
+        log(f"  14a {mode} against none: loss rel {rel['loss']:.2e}, grad "
+            f"norm rel {rel['grad_norm']:.2e} "
+            f"(limit {REMAT_RTOL}; bitwise: {r['bitwise_to_none']}); step "
+            f"time x{r['time_vs_none']:.3f}, peak x{r['peak_vs_none']:.3f}")
+        if max(r["rel_to_none"].values()) > REMAT_RTOL:
+            raise AssertionError(f"14a: remat {mode} changes the step: "
+                                 f"{r['rel_to_none']}")
+    return rows
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def _rel_on_device(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.to(a.device).double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+def sharded_step_path(dev, full_ms: float) -> dict:
+    """Phase 14b: granite-3-2b's steps on a (1, 1) CUDA DeviceMesh of a
+    one-rank NCCL group under SHARDED_VARIANT, against the same steps
+    unsharded; ms per step against 14a's ``full`` (``full_ms``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.sharding import distribute, tree_param_specs
+    from repro_torch.launch.specs import apply_variant, train_state_specs
+    from repro_torch.train import init_train_state, make_train_step
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        base, opt = _granite_fp32()
+        cfg, knobs = apply_variant(base, SHARDED_VARIANT, mesh)
+        batch = _seed_batch(cfg, REMAT_B, REMAT_T, dev)
+        release()
+        state = init_train_state(torch.Generator(dev).manual_seed(SEED), cfg,
+                                 opt, dev)
+        state, um, ums = _run_steps(make_train_step(cfg, opt), state, batch,
+                                    SHARDED_STEPS)
+        want = {"param": [t.cpu() for t in tree_leaves(state.params)],
+                "mu": [t.cpu() for t in tree_leaves(state.opt["mu"])]}
+        del state
+        release()
+        state = init_train_state(torch.Generator(dev).manual_seed(SEED), cfg,
+                                 opt, dev)
+        specs = train_state_specs(state, mesh, knobs)
+        state = distribute(state, specs, mesh)
+        release()
+        step = make_train_step(
+            cfg, opt, accum_dtype=knobs["accum_dtype"],
+            grad_specs=tree_param_specs(state.params, mesh)
+            if knobs["grad_constrain"] else None)
+        state, sm, sms = _run_steps(step, state, batch, SHARDED_STEPS)
+        err = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(sm, um))
+               for k in ("loss", "grad_norm")}
+        for name, got in (("param", state.params), ("mu", state.opt["mu"])):
+            err[name] = max(_rel_on_device(t.to_local(), w) for t, w in
+                            zip(tree_leaves(got), want[name]))
+        del state, want
+        limit = {"loss": PARITY_LOSS_RTOL, "grad_norm": PARITY_LOSS_RTOL,
+                 "param": PARITY_PARAM_RTOL, "mu": PARITY_PARAM_RTOL}
+        out = {"variant": SHARDED_VARIANT, "mesh": [1, 1],
+               "steps": SHARDED_STEPS, "batch": REMAT_B, "seq": REMAT_T,
+               "unsharded": um, "sharded": sm, "errors": err,
+               "limits": limit, "unsharded_step_ms": ums,
+               "sharded_step_ms": sms,
+               "sharded_ms": float(np.median(sms[1:])),
+               "unsharded_ms": float(np.median(ums[1:])),
+               "full_ms_14a": full_ms}
+        out["dispatch_ms"] = out["sharded_ms"] - out["unsharded_ms"]
+        log(f"  14b {SHARDED_VARIANT} on a (1, 1) mesh: {SHARDED_STEPS} steps, "
+            f"errors {err} (limits {limit}); {out['sharded_ms']:.1f} ms a "
+            f"step sharded (first {sms[0]:.0f} ms), {out['unsharded_ms']:.1f}"
+            f" ms unsharded, 14a full {full_ms:.1f} ms: DTensor's dispatch "
+            f"{out['dispatch_ms']:.1f} ms a step (placements on size-1 mesh "
+            f"dims move no bytes)")
+        if not all(err[k] <= v for k, v in limit.items()):
+            raise AssertionError(f"14b: the sharded step differs from the "
+                                 f"unsharded one: {err}")
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def sharding_phase(dev, main_path_launches) -> None:
+    """Phase 14: remat at full width (14a) and the sharded step on a (1, 1)
+    CUDA mesh (14b); neither may launch a forward-only kernel."""
+    from repro_torch.kernels.ragged_gather import ops
+
+    no_grad_kernels = ("ragged_gather", "flash_attention", "rglru_scan")
+    t0 = time.perf_counter()
+    rows = main_path_launches("remat (14a)", (), lambda: remat_path(dev))
+    launched = {k: ops.LAUNCHES[k] for k in no_grad_kernels}
+    log(json.dumps({"remat_path": rows, "launches": launched}))
+    log(f"  phase 14a s: {time.perf_counter() - t0:.1f}")
+    t1 = time.perf_counter()
+    full_ms = rows[f"full@{REMAT_B}x{REMAT_T}"]["median_step_ms_after_first"]
+    sharded = main_path_launches("sharded step (14b)", (),
+                                 lambda: sharded_step_path(dev, full_ms))
+    sharded["launches"] = {k: ops.LAUNCHES[k] for k in no_grad_kernels}
+    log(json.dumps({"sharded_step_path": sharded}))
+    log(f"  phase 14b s: {time.perf_counter() - t1:.1f}")
+    for what, got in (("14a", launched), ("14b", sharded["launches"])):
+        if any(got.values()):
+            raise AssertionError(f"{what}: a forward-only kernel launched "
+                                 f"under autograd: {got}")
+
+
 def breakdown(p: dict) -> dict:
     """A profile's device time split into K8, K9, the GEMMs and the rest."""
     by = p["device_ms_per_round"]
@@ -4093,6 +4337,13 @@ def main() -> int:
     t0 = time.perf_counter()
     model_zoo_phase(dev, main_path_launches)
     log(f"  phase 13 s: {time.perf_counter() - t0:.1f}")
+
+    watch.start(14, "the sharding layer (granite-3-2b's step under each "
+                "remat, and on a (1, 1) CUDA DeviceMesh)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    sharding_phase(dev, main_path_launches)
+    log(f"  phase 14 s: {time.perf_counter() - t0:.1f}")
     watch.stop()
     for name, n in launches.items():
         record[name]["launches"] = n

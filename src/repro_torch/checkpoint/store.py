@@ -13,9 +13,14 @@ keys are the reference's ``_flatten`` paths of the same tree
 bfloat16 leaf is written as NumPy writes the reference's (2-byte void
 records, ``"bfloat16"`` in the manifest) and read back bit for bit.
 
-Differences: :func:`restore` takes ``device=`` (the template leaf's device
-by default) where the reference takes ``shardings=``, which waits for the
-port of its sharding modules (ROADMAP item G).  The consolidation plan
+A tree of DTensors (a sharded train state) is saved as the same tree
+unsharded would be, file for file and manifest for manifest: every rank
+takes part in gathering each leaf, and rank 0 writes.  :func:`restore`
+takes ``shardings=`` (a tree of ``launch.mesh.Sharding``, e.g.
+``shardings_of(specs, mesh)``): each rank reads the full-leaf array and
+keeps its own slice, with no collective, on any mesh (the counterpart of
+the reference's ``device_put`` of a host array); or ``device=`` (the
+template leaf's device by default) for plain tensors.  The consolidation plan
 prices the shards with the reference's own model (``CostParams.tpu_ici``
 in microseconds) so that the manifests of the two packages agree; it is a
 model's price, not a measurement of this machine.
@@ -33,6 +38,7 @@ import torch
 
 from ..core import CostParams, build_gather_tree, simulate_gather
 from ..core.baselines import linear_tree
+from ..core.dtensor import full, is_dtensor
 from ..core.tree import leaves_with_path, tree_unflatten
 
 _BF16 = np.dtype("V2")   # how NumPy saves a bfloat16 array
@@ -45,24 +51,44 @@ def _flatten(tree) -> dict:
 
 
 def _host(leaf) -> np.ndarray:
-    """A leaf as a host array; bfloat16 as 2-byte records."""
+    """A leaf as a host array; bfloat16 as 2-byte records.  A DTensor is
+    gathered whole first, a collective every rank of its mesh joins."""
     if torch.is_tensor(leaf):
-        t = leaf.detach()
+        t = full(leaf.detach())
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).cpu().numpy().view(_BF16)
         return t.cpu().numpy()
     return np.asarray(leaf)
 
 
-def _dtype_name(leaf, arr: np.ndarray) -> str:
-    if torch.is_tensor(leaf) and leaf.dtype == torch.bfloat16:
-        return "bfloat16"
-    return str(arr.dtype)
+def _bf16(leaf) -> bool:
+    return torch.is_tensor(leaf) and leaf.dtype == torch.bfloat16
 
 
 def save(tree, step: int, directory: str, extra: dict | None = None) -> str:
-    """Synchronous atomic save.  Returns the committed path."""
+    """Synchronous atomic save.  Returns the committed path.  A tree with
+    DTensor leaves is saved by every rank of their mesh together: each
+    leaf is gathered on every rank, rank 0 writes, and the others wait at
+    a barrier until the step is committed."""
     flat = _flatten(tree)
+    # one leaf on the host at a time
+    host = ((k, _host(v), _bf16(v)) for k, v in flat.items())
+    if not any(is_dtensor(leaf) for leaf in flat.values()):
+        return _write(host, step, directory, extra)
+    import torch.distributed as dist
+
+    if dist.get_rank() == 0:
+        _write(host, step, directory, extra)
+    else:
+        for _ in host:     # the gathers rank 0 waits for
+            pass
+    dist.barrier()
+    return os.path.join(directory, f"step_{step:08d}")
+
+
+def _write(host, step: int, directory: str, extra: dict | None) -> str:
+    """Write ``(leaf key, host array, whether bfloat16)`` items as step
+    ``step`` and commit it."""
     tmp = os.path.join(directory, f".tmp_{step}")
     final = os.path.join(directory, f"step_{step:08d}")
     if os.path.exists(tmp):
@@ -70,12 +96,12 @@ def save(tree, step: int, directory: str, extra: dict | None = None) -> str:
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": {}, "extra": extra or {}}
     sizes = []
-    for key, leaf in flat.items():
-        arr = _host(leaf)
+    for key, arr, bf16 in host:
         fn = key.replace("/", "__") + ".npy"
         np.save(os.path.join(tmp, fn), arr)
         manifest["leaves"][key] = {"file": fn, "shape": list(arr.shape),
-                                   "dtype": _dtype_name(leaf, arr)}
+                                   "dtype": "bfloat16" if bf16
+                                   else str(arr.dtype)}
         sizes.append(int(arr.nbytes))
     manifest["consolidation"] = plan_consolidation(sizes)
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -126,15 +152,17 @@ def latest_step(directory: str) -> int | None:
     return best
 
 
-def restore_latest(template, directory: str, device=None):
+def restore_latest(template, directory: str, device=None, shardings=None):
     """Resume entry point: restore the newest COMPLETE step.  Returns
     ``(tree, manifest)`` or ``(template, None)`` when no complete
     checkpoint exists.  The layout is full-leaf host arrays, so an
-    elastic shrink restores through this unchanged."""
+    elastic shrink restores through this unchanged, onto a mesh of
+    another shape through ``shardings``."""
     step = latest_step(directory)
     if step is None:
         return template, None
-    return restore(template, step, directory, device=device)
+    return restore(template, step, directory, device=device,
+                   shardings=shardings)
 
 
 def shrink_consolidation(shard_bytes: list[int], lost_ranks,
@@ -167,14 +195,25 @@ def _load(path: str, meta: dict) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(template, step: int, directory: str, device=None):
+def restore(template, step: int, directory: str, device=None,
+            shardings=None):
     """Restore into ``template``'s tree structure, each leaf as a tensor
     in its checkpointed dtype on ``device`` (by default the device of the
-    template's leaf, the CPU for a leaf that is no tensor).  Returns
+    template's leaf, the CPU for a leaf that is no tensor).  With
+    ``shardings`` (a tree of ``launch.mesh.Sharding`` matching the
+    template's), each leaf is a DTensor laid out as its sharding says,
+    each rank keeping its own slice of the full array it reads (on the
+    mesh's device type unless ``device`` says otherwise).  Returns
     ``(tree, manifest)``."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
+    places = None
+    if shardings is not None:
+        from ..launch.mesh import Sharding
+
+        places = iter([s for _, s in leaves_with_path(
+            shardings, is_leaf=lambda x: isinstance(x, Sharding))])
     leaves = []
     for key, leaf in _flatten(template).items():
         meta = manifest["leaves"][key]
@@ -184,10 +223,25 @@ def restore(template, step: int, directory: str, device=None):
         if expect and tuple(t.shape) != expect:
             raise ValueError(f"shape mismatch for {key}: ckpt "
                              f"{tuple(t.shape)} vs template {expect}")
+        if places is not None:
+            from ..launch.sharding import to_dtensor
+
+            mesh, pl = next(places)
+            dev = device if device is not None else _mesh_device(mesh)
+            leaves.append(to_dtensor(t.to(dev), mesh, pl))
+            continue
         dev = device if device is not None else (
             leaf.device if torch.is_tensor(leaf) else "cpu")
         leaves.append(t.to(dev))
     return tree_unflatten(template, leaves), manifest
+
+
+def _mesh_device(mesh) -> torch.device:
+    """The device of this rank on ``mesh``: the current CUDA device of a
+    CUDA mesh, the CPU of a CPU one."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
 class AsyncCheckpointer:

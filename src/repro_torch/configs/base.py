@@ -1,8 +1,10 @@
 """Architecture configuration: the port's copy of ``repro.configs.base``
 with the fields that the models, the steps and :meth:`ArchConfig.reduced`
-read, and the benchmark shapes (:class:`ShapeConfig`, ``SHAPES``,
-:func:`shape_applicable`).  The distribution knobs of the JAX package
-(``remat``, ``fsdp_gather``) wait for the port of its sharding modules.
+read, the benchmark shapes (:class:`ShapeConfig`, ``SHAPES``,
+:func:`shape_applicable`), and the reference's distribution knobs:
+``remat`` (what a train step keeps of each body period's activations,
+``models.transformer._remat``) and ``fsdp_gather`` (the unshard-at-use
+hint of a sharded step, ``models.act_sharding.unshard_fsdp``).
 
 ``pattern`` is the periodic block unit scanned over depth; block kinds:
   dense  — GQA self-attention (+optional sliding window) + MLP
@@ -48,8 +50,11 @@ class ArchConfig:
     n_img_tokens: int = 0              # vlm stub: image patch embeddings
     act: str = "swiglu"
     dtype: str = "bfloat16"
+    # distribution knobs
+    remat: str = "full"                # full | dots | none
     sublinear_attention: bool = False  # True iff long_500k is runnable
     kv_dtype: str | None = None        # "int8": quantized KV cache
+    fsdp_gather: bool = False          # unshard-at-use hint per period
     notes: str = ""
 
     @property

@@ -37,34 +37,48 @@ def _rebuild(tree, children: list):
     return type(tree)(*children)
 
 
-def leaves_with_path(tree, path: tuple = ()):
-    """``(path, leaf)`` of every leaf in the reference's order."""
+def leaves_with_path(tree, path: tuple = (), is_leaf=None):
+    """``(path, leaf)`` of every leaf in the reference's order.
+    ``is_leaf(node)``, where given, stops the descent at a node it holds
+    true of (``jax.tree_util``'s argument of that name)."""
     if tree is None:
         return
-    node = _children(tree)
+    node = None if is_leaf is not None and is_leaf(tree) else \
+        _children(tree)
     if node is None:
         yield path, tree
         return
     for k, child in zip(*node):
-        yield from leaves_with_path(child, path + (k,))
+        yield from leaves_with_path(child, path + (k,), is_leaf)
 
 
-def tree_leaves(tree) -> list:
-    return [leaf for _, leaf in leaves_with_path(tree)]
+def tree_leaves(tree, is_leaf=None) -> list:
+    return [leaf for _, leaf in leaves_with_path(tree, is_leaf=is_leaf)]
 
 
-def tree_map(fn, tree, *rest):
+def tree_map(fn, tree, *rest, is_leaf=None):
     """``fn`` over the leaves of ``tree`` and the matching leaves of each
     tree of ``rest`` (same structure), into a tree of ``tree``'s
-    structure."""
+    structure.  ``is_leaf`` as in :func:`leaves_with_path`, read on
+    ``tree``."""
     if tree is None:
         return None
-    node = _children(tree)
+    node = None if is_leaf is not None and is_leaf(tree) else \
+        _children(tree)
     if node is None:
         return fn(tree, *rest)
     others = [_children(r)[1] for r in rest]
-    return _rebuild(tree, [tree_map(fn, c, *[o[i] for o in others])
+    return _rebuild(tree, [tree_map(fn, c, *[o[i] for o in others],
+                                    is_leaf=is_leaf)
                            for i, c in enumerate(node[1])])
+
+
+def tree_map_with_path(fn, tree, *rest, is_leaf=None):
+    """``fn(path, leaf, *matching leaves)`` over the leaves of ``tree``,
+    into a tree of its structure (``jax.tree_util.tree_map_with_path``)."""
+    paths = iter([p for p, _ in leaves_with_path(tree, is_leaf=is_leaf)])
+    return tree_map(lambda *leaves: fn(next(paths), *leaves), tree, *rest,
+                    is_leaf=is_leaf)
 
 
 def tree_unflatten(tree, leaves) -> object:

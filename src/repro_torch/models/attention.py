@@ -26,6 +26,10 @@ over the image embeddings with no RoPE and no mask; without gradients it
 runs on K8 with ``causal=False`` (T queries against the S image tokens,
 in prefill and in decode alike), under autograd the reference's
 ``_sdpa(q, k, v, None)``.
+
+On a mesh (a sharded train step, DTensor activations) :func:`_sdpa`
+attends on each rank's batch and head shards (:func:`_sdpa_on_shards`),
+and the positions the layer makes go on the mesh, replicated.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import math
 
 import torch
 
+from ..core.dtensor import is_dtensor, on_mesh
 from ..kernels.backend import needs_grad
 from ..kernels.flash_attention.ops import flash_attention
 from .layers import apply_rope, trunc_normal
@@ -54,12 +59,40 @@ def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(b, t, n, hd)
 
 
+def _sdpa_on_shards(q, k, v, mask):
+    """:func:`_sdpa` of DTensors: attention is independent per batch row
+    and per group of query heads with its kv head, so q, k and v are laid
+    out batch-sharded where q's batch is and head-sharded where q's heads
+    are (when the kv heads divide), replicated on every other mesh dim, and
+    each rank attends over its own shards.  The output ``(B, T, H*hd)`` has
+    the same placements, its heads in contiguous chunks."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = q.device_mesh
+    places = []
+    for i, p in enumerate(q.placements):
+        if isinstance(p, Shard) and (p.dim == 0 or (
+                p.dim == 2 and k.shape[2] % mesh.size(i) == 0)):
+            places.append(Shard(p.dim))
+        else:
+            places.append(Replicate())
+    q, k, v = (t.redistribute(mesh, places) for t in (q, k, v))
+    out = _sdpa(q.to_local(), k.to_local(), v.to_local(), mask)
+    b, t, h, hd = q.shape
+    return DTensor.from_local(out, mesh, places, run_check=False,
+                              shape=torch.Size((b, t, h * hd)),
+                              stride=(t * h * hd, h * hd, 1))
+
+
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           mask: torch.Tensor | None) -> torch.Tensor:
     """q ``(B, T, H, hd)``, k/v ``(B, S, Hkv, hd)``, mask ``(B, 1, T, S)``
     or None → ``(B, T, H*hd)``.  The scores in fp32 (the reference's
     ``preferred_element_type``: bf16 products are exact in fp32), the
-    probabilities cast to v's dtype before the second product."""
+    probabilities cast to v's dtype before the second product.  On
+    DTensors each rank attends over its shards (:func:`_sdpa_on_shards`)."""
+    if is_dtensor(q):
+        return _sdpa_on_shards(q, k, v, mask)
     b, t, h, hd = q.shape
     hkv = k.shape[2]
     g = h // hkv
@@ -155,7 +188,8 @@ def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
     returns ``(out, cache)``."""
     b, t, _ = x.shape
     if positions is None:
-        positions = torch.arange(t, dtype=torch.int32, device=x.device)[None]
+        positions = on_mesh(torch.arange(t, dtype=torch.int32,
+                                         device=x.device)[None], x)
     q, k, v = _project(p, x, n_heads, n_kv_heads, head_dim, positions,
                        rope_theta)
     if not needs_grad(q, k, v):

@@ -10,6 +10,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.dtensor import (batch_sharded, from_shards, is_dtensor, on_mesh,
+                           shard_start, sum_over_ranks)
+
 
 def trunc_normal(shape, scale: float, dtype: torch.dtype,
                  generator: torch.Generator, device) -> torch.Tensor:
@@ -18,7 +21,11 @@ def trunc_normal(shape, scale: float, dtype: torch.dtype,
     fan-in is ``shape[0]``, as in the reference (for a stacked expert
     weight ``(E, d, f)`` that is ``E``).  The bits differ from
     ``jax.random``'s; carry the reference's weights with
-    ``core.carry.params_from_numpy`` to compare the two."""
+    ``core.carry.params_from_numpy`` to compare the two.  On the ``meta``
+    device (shapes and dtypes only, ``launch.specs``) nothing is drawn and
+    ``generator`` may be None."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     std = scale / np.sqrt(shape[0] if len(shape) > 1 else 1.0)
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=generator)
@@ -61,7 +68,51 @@ def init_embedding(vocab: int, d: int, dtype: torch.dtype,
 
 
 def embed(p: dict, ids: torch.Tensor) -> torch.Tensor:
+    """The rows ``ids`` of the table; on a mesh, :func:`_embed_on_mesh`."""
+    if is_dtensor(ids) or is_dtensor(p["e"]):
+        return _embed_on_mesh(p["e"], ids)
     return p["e"][ids]
+
+
+def _embed_on_mesh(e, ids):
+    """The vocab-parallel lookup of a DTensor table ``e`` ``(V, D)``, on
+    each rank's shards: ``ids`` keep their batch shards; the table keeps
+    its vocab shards (each rank looks up the rows it holds, zeros for the
+    others, and the ranks sum) and its ``D`` shards where the ids are not
+    sharded, and is gathered over every other mesh dim (FSDP's gather).
+    DTensor's own rules for the lookup fail here: an index's backward has
+    none in torch 2.11, and ``F.embedding``'s masked sum does not follow
+    the batch shards of a 2-D mesh in 2.13."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    ids = batch_sharded(on_mesh(ids, e))
+    e = on_mesh(e, ids)
+    mesh = e.device_mesh
+    e_places, out_places, summed = [], [], []
+    for i, (pe, pi) in enumerate(zip(e.placements, ids.placements)):
+        if isinstance(pi, Shard):            # the batch, on this mesh dim
+            e_places.append(Replicate())
+            out_places.append(Shard(0))
+        elif isinstance(pe, Shard):          # vocab (0) or D (1)
+            e_places.append(Shard(pe.dim))
+            out_places.append(Replicate() if pe.dim == 0 else Shard(2))
+            if pe.dim == 0:
+                summed.append(mesh.get_group(i))
+        else:
+            e_places.append(Replicate())
+            out_places.append(Replicate())
+    e = e.redistribute(mesh, e_places)
+    # a rank sees only its batch shard's lookups, so its table gradient is
+    # a partial sum over the mesh dims that shard the batch
+    table = e.to_local(grad_placements=[
+        Partial() if isinstance(pi, Shard) else pe
+        for pe, pi in zip(e_places, ids.placements)])
+    idx = ids.to_local().long()
+    start = shard_start(e, 0)                # this rank's vocab range
+    held = (idx >= start) & (idx < start + table.shape[0])
+    out = F.embedding(torch.where(held, idx - start, 0), table)
+    out = sum_over_ranks(out * held[..., None].to(out.dtype), summed)
+    return from_shards(out, mesh, out_places, (*ids.shape, e.shape[1]))
 
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -88,9 +139,11 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor,
                theta: float) -> torch.Tensor:
     """Rotate-half RoPE (the first half of each head against the second,
     not interleaved pairs), angles in fp32.  x: ``(..., T, H, hd)``; pos:
-    broadcastable ``(..., T)`` integer positions."""
+    broadcastable ``(..., T)`` integer positions.  On a DTensor ``x`` the
+    table and the positions go on its mesh, replicated."""
     hd = x.shape[-1]
-    freqs = _rope_table(hd, float(theta), x.device)
+    freqs = on_mesh(_rope_table(hd, float(theta), x.device), x)
+    pos = on_mesh(pos, x)
     ang = pos[..., :, None, None].float() * freqs     # (..., T, 1, hd/2)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x[..., : hd // 2].float(), x[..., hd // 2:].float()

@@ -33,6 +33,9 @@ from torch import nn
 
 from ..configs.base import MoEConfig
 from ..core.carry import params_from_numpy
+from ..core.dtensor import (batch_sharded, from_shards, full, groups_of,
+                           is_dtensor, on_mesh, replicated, shard_start,
+                           sum_over_ranks)
 from ..core.mesh import resolve_device
 from ..kernels.backend import needs_grad
 from ..kernels.ragged_gather import ops, ref
@@ -48,7 +51,9 @@ class Routing:
     token, gate probability and slot in its expert's buffer, ``keep`` is
     ``pos < C``.  ``counts`` ``(G, E)`` is each expert's load before the
     capacity cut; ``disp`` ``(G, E, C)`` int32 holds the token of each
-    slot and the sentinel ``tokens = Tl`` (a zero row) in an empty one."""
+    slot and the sentinel ``tokens = Tl`` (a zero row) in an empty one.
+    ``order`` is the sort: sorted pair ``j`` is pair ``order[j] = t * K +
+    k``, choice ``k`` of token ``t``."""
 
     eid: torch.Tensor
     tid: torch.Tensor
@@ -57,6 +62,7 @@ class Routing:
     keep: torch.Tensor
     counts: torch.Tensor
     disp: torch.Tensor
+    order: torch.Tensor
     tokens: int
 
 
@@ -95,7 +101,7 @@ def route(logits: torch.Tensor, top_k: int, capacity: int) -> Routing:
                       device=dev)
     disp.scatter_(1, slot, tid_s.to(torch.int32))
     return Routing(eid_s, tid_s, pr_s, pos, keep, counts,
-                   disp[:, : E * capacity].reshape(G, E, capacity), Tl)
+                   disp[:, : E * capacity].reshape(G, E, capacity), order, Tl)
 
 
 def init_moe(d_model: int, cfg: MoEConfig, dtype: torch.dtype,
@@ -168,7 +174,8 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig,
     ``repro.models.moe.moe_apply``: sort-based dispatch with a capacity
     drop, SwiGLU experts, gate-weighted combine.  With
     ``cfg.dispatch_groups = G > 1`` the tokens split into ``G`` groups
-    that each dispatch on their own, with a per-group capacity.
+    that each dispatch on their own, with a per-group capacity.  On a
+    mesh (``x`` a DTensor), :func:`_moe_on_mesh`.
 
     ``aux`` holds ``load`` (each expert's token count, the ragged sizes
     the collectives consume), the Switch-style ``balance_loss`` and
@@ -177,6 +184,8 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig,
     G = cfg.dispatch_groups
     if B % G:
         raise ValueError(f"batch {B} does not split into {G} dispatch groups")
+    if is_dtensor(x):
+        return _moe_on_mesh(p, x, cfg, capacity)
     E, K = cfg.n_experts, cfg.top_k
     Tl = (B // G) * S
     xg = x.reshape(G, Tl, D)
@@ -192,6 +201,126 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig,
     aux = {"load": load, "balance_loss": E * torch.sum(me * ce),
            "dropped": torch.sum(~r.keep)}
     return out.reshape(B, S, D).to(x.dtype), aux
+
+
+def _moe_on_mesh(p: dict, x, cfg: MoEConfig, capacity: int | None):
+    """:func:`moe_apply` of a DTensor ``x``, each rank on its own batch
+    shard (``nb`` shards, ``Tn`` tokens each).  The experts' products run
+    as DTensor ops against their sharded weights (EP or TP,
+    ``launch.sharding``); routing, dispatch and combine run on local
+    tensors.
+
+    * Where every dispatch group lies in one batch shard (``moe_local``:
+      ``G`` a multiple of ``nb``), a rank routes, dispatches and combines
+      its own groups from its own router logits, and its expert buffers
+      are its shard of ``(G, E, C, D)``: no token crosses the batch
+      shards.
+    * Otherwise (``G == 1``: capacity counted over all of a group's
+      tokens) every rank routes all groups on the gathered router logits
+      (``G * Tl * E`` floats), fills the full-size buffers with its own
+      tokens, zeros elsewhere, and the ranks' buffers are summed into a
+      capacity-sharded layout; the expert outputs are gathered back for
+      the combine.
+
+    A rank combines only its own tokens' (token, choice) pairs, from the
+    experts it holds on a mesh dim that shards them (EP) or from its
+    partial products (TP); the ranks sum over those dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    B, S, D = x.shape
+    G, E, K = cfg.dispatch_groups, cfg.n_experts, cfg.top_k
+    Tl = (B // G) * S
+    C = capacity if capacity is not None else capacity_for(cfg, Tl)
+    x = batch_sharded(x)
+    mesh = x.device_mesh
+    bdims = [i for i, pl in enumerate(x.placements) if pl == Shard(0)]
+    nb = B // x.to_local().shape[0]
+    Tn = B * S // nb                          # this rank's tokens
+    t0 = shard_start(x, 0) * S                # its first, of all B * S
+    xl = x.to_local().reshape(Tn, D)
+    logits = batch_sharded(torch.matmul(x.float(), p["router"].float()))
+    ll = logits.to_local().detach().reshape(Tn, E)
+    grouped = G % nb == 0
+    if grouped:                               # this rank's G // nb groups
+        Gr, g0 = G // nb, t0 // Tl
+        r = route(ll.view(Gr, Tl, E), K, C)
+    else:                                     # every group, on every rank
+        Gr, g0 = G, 0
+        r = route(replicated(logits).to_local().detach().view(G, Tl, E), K, C)
+    tn = t0 - g0 * Tl                         # first token of the routed
+
+    # dispatch: the routed groups' buffers, this rank's tokens in them
+    flat = r.disp.long() + torch.arange(Gr, device=xl.device)[:, None,
+                                                              None] * Tl
+    mine = (r.disp < Tl) & (flat >= tn) & (flat < tn + Tn)
+    rows = torch.where(mine, flat - tn, Tn).to(torch.int32)
+    xz = torch.cat([xl, xl.new_zeros((1, D))])
+    xe = _gather(xz, rows.reshape(-1)).view(Gr, E, C, D)
+    edge = [Replicate()] * mesh.ndim
+    for i in bdims:
+        edge[i] = Shard(0) if grouped else Partial()
+    xe = from_shards(xe, mesh, edge, (G, E, C, D))
+    if not grouped:                           # each rank its capacity rows
+        xe = xe.redistribute(mesh, [Shard(2) if i in bdims else pl
+                                    for i, pl in enumerate(edge)])
+    ye = experts(p, xe)
+
+    # combine: this rank's pairs from the experts' outputs it holds
+    held, grads, summed = [], [], set()
+    for i, pl in enumerate(ye.placements):
+        if i in bdims:                        # the routed groups, whole
+            held.append(Shard(0) if grouped else Replicate())
+            grads.append(Shard(0) if grouped else Partial())
+        elif pl == Shard(1) or isinstance(pl, Partial):
+            held.append(pl)                   # EP's experts, TP's partials
+            grads.append(Shard(1) if pl == Shard(1) else Replicate())
+            summed.add(i)
+        else:
+            held.append(Replicate())
+            grads.append(Replicate())
+    if list(ye.placements) != held:
+        ye = ye.redistribute(mesh, held)
+    e0 = shard_start(ye, 1)
+    yl = ye.to_local(grad_placements=grads)
+    El = yl.shape[1]
+
+    # this rank's tokens' pairs, back in token order from route's sort
+    def mine_of(t):
+        t = torch.empty_like(t).scatter_(1, r.order, t)
+        return t.reshape(Gr * Tl, K)[tn: tn + Tn]
+    topi, pos = mine_of(r.eid), mine_of(r.pos)                  # (Tn, K)
+    # a rank weighs only the pairs it combines, so the gate's gradient is
+    # a partial sum over the mesh dims summed below
+    lg = logits.to_local(grad_placements=[
+        Partial() if i in summed else pl
+        for i, pl in enumerate(logits.placements)]).reshape(Tn, E)
+    prob = torch.softmax(lg.gather(1, topi), -1)                # (Tn, K)
+    g = (torch.arange(tn, tn + Tn, device=xl.device) // Tl)[:, None]
+    ok = (pos < C) & (topi >= e0) & (topi < e0 + El)
+    rows = torch.where(ok, (g * El + topi - e0) * C + pos, 0)
+    contrib = _gather(yl.reshape(Gr * El * C, D).contiguous(),
+                      rows.reshape(-1).to(torch.int32)).view(Tn, K, D)
+    out = (contrib * torch.where(ok, prob, 0.0).to(contrib.dtype)[..., None]
+           ).sum(1)
+    out = sum_over_ranks(out, [mesh.get_group(i) for i in sorted(summed)])
+    out = from_shards(out.view(-1, S, D).to(x.dtype), mesh,
+                      [Shard(0) if i in bdims else Replicate()
+                       for i in range(mesh.ndim)], (B, S, D))
+    if cfg.n_shared:
+        out = out + mlp(p["shared"], x).to(x.dtype)
+
+    # the balance statistics over all tokens (E numbers a rank)
+    batch = groups_of(x, lambda pl: pl == Shard(0))
+    load = r.counts.sum(0)
+    dropped = torch.sum(~r.keep)
+    if grouped:
+        load = sum_over_ranks(load, batch)
+        dropped = sum_over_ranks(dropped, batch)
+    me = full(torch.softmax(logits, -1).mean(dim=(0, 1)))
+    ce = load.float() / max(1, G * Tl * K)
+    aux = {"load": load, "balance_loss": on_mesh(E * torch.sum(me * ce), x),
+           "dropped": dropped}
+    return out, aux
 
 
 _FLAT = ("router", "wi", "wg", "wo")

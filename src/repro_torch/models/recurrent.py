@@ -32,6 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core.dtensor import full, on_mesh
 from ..kernels.backend import needs_grad
 from ..kernels.rg_lru.ops import rglru_scan
 from .layers import trunc_normal
@@ -76,8 +77,8 @@ def _causal_conv(p: dict, x: torch.Tensor, state: torch.Tensor | None = None):
     W = w.shape[0]
     x32 = x.float()
     if state is None:
-        pad = torch.zeros((x.shape[0], W - 1, x.shape[2]),
-                          dtype=torch.float32, device=x.device)
+        pad = on_mesh(torch.zeros((x.shape[0], W - 1, x.shape[2]),
+                                  dtype=torch.float32, device=x.device), x)
     else:
         pad = state.float()
     xp = torch.cat([pad, x32], dim=1)
@@ -129,7 +130,8 @@ def _train_scan(a: torch.Tensor, b: torch.Tensor, chunk: int):
     if not (T > 2 * chunk and T % chunk == 0):
         _, h = _assoc_scan(a, b)
         return h, h[:, -1]
-    h0 = torch.zeros((B, D), dtype=torch.float32, device=a.device)
+    h0 = on_mesh(torch.zeros((B, D), dtype=torch.float32, device=a.device),
+                 a)
     hs = []
     for t0 in range(0, T, chunk):
         A, hc = _assoc_scan(a[:, t0: t0 + chunk], b[:, t0: t0 + chunk])
@@ -202,11 +204,14 @@ def _mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fp32.  Returns ``(h (B, T, H, hd) fp32, final state)``."""
     B, T, H, hd = q.shape
     qf, kf, vf = q.float(), k.float(), v.float()
-    tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                 device=q.device))
-    C0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=q.device)
-    n0 = torch.zeros((B, H, hd), dtype=torch.float32, device=q.device)
-    m0 = torch.full((B, H), -1e30, dtype=torch.float32, device=q.device)
+    tril = on_mesh(torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                         device=q.device)), q)
+    C0 = on_mesh(torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                             device=q.device), q)
+    n0 = on_mesh(torch.zeros((B, H, hd), dtype=torch.float32,
+                             device=q.device), q)
+    m0 = on_mesh(torch.full((B, H), -1e30, dtype=torch.float32,
+                            device=q.device), q)
     hs = []
     for t0 in range(0, T, chunk):
         qc, kc, vc = (x[:, t0: t0 + chunk] for x in (qf, kf, vf))
@@ -256,7 +261,10 @@ def mlstm_block(p: dict, x: torch.Tensor, n_heads: int,
     k = (x @ p["wk"].to(x.dtype)).reshape(B, T, H, hd)
     v = (x @ p["wv"].to(x.dtype)).reshape(B, T, H, hd)
     log_i = (x @ p["wi"].to(x.dtype)).float()                  # (B,T,H)
-    log_f = F.logsigmoid((x @ p["wf"].to(x.dtype)).float())    # (B,T,H)
+    # DTensor has no sharding rule for logsigmoid's backward: on a mesh it
+    # runs on every rank's whole copy of its (B, T, H) input
+    f = (x @ p["wf"].to(x.dtype)).float()
+    log_f = on_mesh(F.logsigmoid(full(f)), f)                  # (B,T,H)
     scale = 1.0 / math.sqrt(hd)
 
     if state is None and T > 2 * chunk and T % chunk == 0:
@@ -267,8 +275,8 @@ def mlstm_block(p: dict, x: torch.Tensor, n_heads: int,
     elif state is None:
         bcum = torch.cumsum(log_f, dim=1)                      # (B,T,H)
         logd = bcum[:, :, None] - bcum[:, None, :] + log_i[:, None, :]
-        tril = torch.tril(torch.ones((T, T), dtype=torch.bool,
-                                     device=x.device))
+        tril = on_mesh(torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                             device=x.device)), x)
         logd = torch.where(tril[None, :, :, None], logd, -math.inf)
         m = torch.amax(logd, dim=2, keepdim=True)              # (B,t,1,H)
         dmat = torch.exp(logd - m)
@@ -339,19 +347,23 @@ def slstm_block(p: dict, x: torch.Tensor, n_heads: int,
     """xLSTM's sLSTM, a true recurrence (the gates see ``h_{t-1}``): a
     Python loop over time.  x ``(B, T, D)``; ``state`` ``{"c", "n", "m",
     "h"}``, each ``(B, D)`` fp32, or None (from zero).  Returns ``(out,
-    new_state)``."""
+    new_state)``.
+
+    On a mesh (x a DTensor) the projections run sharded, and the loop
+    runs on every rank's full copy of the gate inputs and of ``rh``: a
+    sharded ``h`` would cost a collective at every time step."""
     H = n_heads
     B, T, D = x.shape
     hd = D // H
-    gx = (x @ p["wx"].to(x.dtype)).float()                    # (B,T,4D)
-    rh = p["rh"].float()                                       # (H,hd,4hd)
+    gx = full((x @ p["wx"].to(x.dtype)).float())              # (B,T,4D)
+    rh = full(p["rh"].float())                                 # (H,hd,4hd)
     if state is None:
-        z = torch.zeros((B, D), dtype=torch.float32, device=x.device)
+        z = torch.zeros((B, D), dtype=torch.float32, device=gx.device)
         c, n, h = z, z, z
-        m = torch.full((B, D), -1e30, dtype=torch.float32, device=x.device)
+        m = torch.full((B, D), -1e30, dtype=torch.float32, device=gx.device)
     else:
         c, n, m, h = state["c"], state["n"], state["m"], state["h"]
-    one = torch.ones((), dtype=torch.float32, device=x.device)
+    one = torch.ones((), dtype=torch.float32, device=gx.device)
     hs = []
     for t in range(T):
         gr = torch.einsum("bhk,hkg->bhg", h.reshape(B, H, hd), rh)
@@ -368,7 +380,7 @@ def slstm_block(p: dict, x: torch.Tensor, n_heads: int,
         h = torch.sigmoid(go) * c / torch.maximum(n, one)
         m = m1
         hs.append(h)
-    out = torch.stack(hs, dim=1).to(x.dtype)
+    out = on_mesh(torch.stack(hs, dim=1).to(x.dtype), x)
     return out @ p["wo"].to(x.dtype), {"c": c, "n": n, "m": m, "h": h}
 
 

@@ -4,10 +4,16 @@ periods of ``cfg.pattern`` and a tail, with the caches grouped the same
 way.
 
 The reference scans its body over stacked period weights; here the body
-is a list of periods, each a list of blocks, run in a Python loop.  The
-reference's ``residual_constraint``, ``unshard_fsdp`` and remat are
-sharding and memory hints for the scan and have no counterpart on one
-device.
+is a list of periods, each a list of blocks, run in a Python loop.  In
+``train`` mode each body period runs as the reference's scan body does:
+``residual_constraint`` on its input and output, ``unshard_fsdp`` of its
+weights when ``cfg.fsdp_gather``, and the whole period under
+:func:`_remat` (``cfg.remat``: ``full`` keeps only the period's inputs
+and recomputes the rest in the backward pass, ``dots`` keeps the outputs
+of the products without batch dims as well, ``none`` keeps everything).
+The ``first`` and ``tail`` blocks are not rematerialised, as in the
+reference.  The constraints act on DTensors under a mesh
+(``launch.mesh.mesh_context``) and are no-ops on plain tensors.
 
 Modes: ``train`` (no cache), ``prefill`` (full sequence, fills caches),
 ``decode`` (one token against caches).  Block kinds: ``dense``, ``moe``
@@ -26,9 +32,11 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..core.dtensor import on_mesh
 from ..core.mesh import resolve_device
 from . import attention as attn
 from . import recurrent as rec
+from .act_sharding import gather_sequence, residual_constraint, unshard_fsdp
 from .layers import (embed, init_embedding, init_mlp, init_rmsnorm, mlp,
                      rmsnorm, unembed)
 from .moe import init_moe, moe_apply
@@ -122,6 +130,7 @@ def _apply_block(p: dict, kind: str, cfg: ArchConfig, x: torch.Tensor, *,
     image embeddings a ``cross`` block attends to."""
     _check_kind(kind)
     aux = None
+    x = gather_sequence(x)
     h = rmsnorm(p["norm1"], x)
     new_cache = cache
     if kind in _RECURRENT:
@@ -202,11 +211,72 @@ def _put(tree: dict, group: str, index, value) -> None:
         tree[group].append(value)
 
 
+def _products_saveable(ctx, op, *args, **kwargs):
+    """The ``dots`` policy: keep the outputs of ``mm`` and ``addmm``, the
+    products without batch dims (a ``(B, T, D) @ (D, F)`` folds its batch
+    into one ``mm``), and recompute everything else, ``bmm`` included:
+    the counterpart of ``dots_with_no_batch_dims_saveable``."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ArchConfig):
+    """``fn`` rematerialised as ``cfg.remat`` says: ``none`` returns it,
+    ``full`` keeps its inputs only, ``dots`` also its products without
+    batch dims (:func:`_products_saveable`)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r}: full, dots or none")
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    def remat(*args):
+        if not torch.is_grad_enabled():   # nothing is kept to rematerialise
+            return fn(*args)
+        kw = {}
+        if cfg.remat == "dots":
+            kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+                _products_saveable)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return remat
+
+
+def _train_period(cfg: ArchConfig, img: torch.Tensor | None):
+    """One body period of a train step, the reference's scan body:
+    ``(x, aux_total, period weights) -> (x, aux_total)``.  ``x`` arrives
+    laid out by ``residual_constraint`` (so the input a remat keeps is
+    sequence-sharded), and leaves so."""
+    def period(x, aux_total, period_params):
+        if cfg.fsdp_gather:
+            period_params = unshard_fsdp(period_params)
+        for j, kind in enumerate(cfg.pattern):
+            x, _, aux = _apply_block(period_params[j], kind, cfg, x, img=img,
+                                     mode="train")
+            if aux is not None:
+                aux_total = aux_total + aux
+        # the saved per-period checkpoint is this output
+        return residual_constraint(x), aux_total
+    return period
+
+
 def _run_layers(params: dict, cfg: ArchConfig, x: torch.Tensor,
                 img: torch.Tensor | None, cache: dict | None, mode: str):
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_total = on_mesh(torch.zeros((), dtype=torch.float32,
+                                    device=x.device), x)
     new_cache = _empty_like_groups(cfg) if cache is not None else None
+    period = _remat(_train_period(cfg, img), cfg) if mode == "train" \
+        else None
     for group, index, kind, bcfg in _blocks(cfg):
+        if period is not None and group == "body":
+            n, j = index
+            if j == 0:
+                x, aux_total = period(residual_constraint(x), aux_total,
+                                      params["body"][n])
+            continue
         c = _get(cache, group, index) if cache is not None else None
         x, c2, aux = _apply_block(_get(params, group, index), kind, bcfg, x,
                                   img=img, cache=c, mode=mode)
@@ -227,8 +297,10 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor | None = None,
     before the unembed (prefill needs only next-token logits).  Returns
     ``(logits, aux)`` or ``(logits, aux, new_cache)``."""
     mode = "train" if cache is None else "prefill"
-    x = embed(params["embed"], tokens) if cfg.embed_inputs else embeds
+    x = embed(params["embed"], gather_sequence(tokens)) if cfg.embed_inputs \
+        else gather_sequence(embeds)
     x, aux_total, new_cache = _run_layers(params, cfg, x, img, cache, mode)
+    x = gather_sequence(x)
     if logits_last_only:
         x = x[:, -1:]
     logits = unembed(params["embed"], rmsnorm(params["final_norm"], x))

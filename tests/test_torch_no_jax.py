@@ -129,6 +129,18 @@ for arch in ("xlstm-125m", "llama-3.2-vision-11b"):
     logits, cache = make_decode_step(cfg)(
         model.params, cache, {"tokens": batch["tokens"][:, :1], "img": img})
     assert logits.shape == (2, 1, cfg.vocab)
+from types import SimpleNamespace
+from repro_torch import sharding_rules
+from repro_torch.launch import mesh as lmesh, specs as lspecs
+from repro_torch.models import act_sharding
+m = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(16, 16))
+step, args, ins, outs, donate, meta = lspecs.build_cell(
+    "granite-3-2b", "train_4k", m, "grad_shard,fsdp_gather")
+assert donate == (0,) and meta["microbatches"] >= 1
+assert ins[0].params["embed"]["e"] == sharding_rules.PartitionSpec(
+    None, "model")    # 49155 rows do not split: model on d, no FSDP
+assert lmesh.current_mesh() is None
+assert act_sharding.residual_constraint(torch.ones(2, 3, 4)).shape == (2, 3, 4)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)

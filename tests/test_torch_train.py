@@ -396,13 +396,79 @@ def test_train_state_from_numpy_carries_every_leaf():
         assert torch.equal(a, b)
 
 
-def test_train_step_refuses_grad_specs_and_image_inputs():
-    """``grad_specs`` waits for the sharding modules (ROADMAP item G.4);
-    image inputs are taken (the VLM's cross blocks train under autograd,
-    ``tests/test_torch_archs.py``)."""
-    cfg = get_config("granite-3-2b").reduced()
-    with pytest.raises(NotImplementedError, match="launch/sharding.py"):
-        make_train_step(cfg, optim.AdamWConfig(), grad_specs={})
+@pytest.fixture
+def one_rank_mesh(tmp_path):
+    """A ``(1, 1)`` ``("data", "model")`` mesh over a gloo group of one
+    rank in this process, destroyed after the test."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cpu", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch,specs", [
+    ("granite-3-2b", "params"), ("granite-3-2b", "replicated"),
+    ("llama-3.2-vision-11b", "params")])
+def test_train_step_takes_grad_specs_and_image_inputs(one_rank_mesh,
+                                                      monkeypatch, arch,
+                                                      specs):
+    """``grad_specs`` lays every gradient out under its spec before the
+    update: the specs of the parameters (``tree_param_specs``, which on a
+    mesh of size-1 dims still shard), or every leaf replicated, unlike the
+    parameters.  The step on the DTensor state is the unsharded step's
+    (one rank: the same products), and the VLM's image inputs are taken
+    (its cross blocks train under autograd)."""
+    from repro_torch.core.dtensor import is_dtensor
+    from repro_torch.launch.sharding import distribute, tree_param_specs
+    from repro_torch.sharding_rules import PartitionSpec, placements
+    from repro_torch.train import TrainState
+    from repro_torch.train import steps as psteps
+
+    mesh = one_rank_mesh
+    _, cfg, _, ps = _states(arch)
+    pspecs = tree_param_specs(ps.params, mesh)
+    gspecs = pspecs if specs == "params" else \
+        tree_unflatten(ps.params, [PartitionSpec()] * len(
+            tree_leaves(ps.params)))
+    want = [placements(s, mesh) for s in tree_leaves(
+        gspecs, is_leaf=lambda x: isinstance(x, PartitionSpec))]
+    seen = []
+    update = psteps.adamw_update
+
+    def spy(params, grads, *a, **kw):
+        seen.append(grads)
+        return update(params, grads, *a, **kw)
+    monkeypatch.setattr(psteps, "adamw_update", spy)
+    sharded = TrainState(
+        distribute(ps.params, pspecs, mesh),
+        {"mu": distribute(ps.opt["mu"], pspecs, mesh),
+         "nu": distribute(ps.opt["nu"], pspecs, mesh),
+         "count": distribute(ps.opt["count"], PartitionSpec(), mesh)},
+        distribute(ps.step, PartitionSpec(), mesh))
+    batch = _batch(cfg, 2, 16)
+    if cfg.n_img_tokens:
+        batch["img"] = np.random.default_rng(1).standard_normal(
+            (2, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+    sched = {"warmup": 1, "total": 3}
+    sharded, sm = make_train_step(cfg, optim.AdamWConfig(lr=3e-3), sched,
+                                  grad_specs=gspecs)(sharded, batch)
+    ps, pm = make_train_step(cfg, optim.AdamWConfig(lr=3e-3), sched)(
+        ps, batch)
+    got = tree_leaves(seen[0])
+    assert len(got) == len(want)
+    for g, pl in zip(got, want):
+        assert is_dtensor(g) and tuple(g.placements) == pl
+    assert np.isfinite(float(sm["loss"]))
+    assert abs(float(sm["loss"]) - float(pm["loss"])) <= \
+        LOSS_RTOL * abs(float(pm["loss"]))
+    for a, b in zip(tree_leaves(sharded.params), tree_leaves(ps.params)):
+        assert _rel(a.full_tensor(), b.numpy()) <= STEP_RTOL
 
 
 # ------------------------------------------------------------ kernel guards
