@@ -383,12 +383,19 @@ ARCHS_13E = (("stablelm-3b", None), ("musicgen-large", None),
 REMAT_MODES, REMAT_RTOL = ("none", "full", "dots"), 1e-6
 REMAT_B, REMAT_T, REMAT_BIG_B, REMAT_STEPS = 2, 512, 24, 4
 SHARDED_VARIANT, SHARDED_STEPS = "grad_shard,fsdp_gather", 3
+# phase 15: the serving cells executed sharded.  15a: phase 7's and 8's
+# models and first batches, a prefill and SHARDED_SERVE_STEPS decode steps
+# through the step builders on a (1, 1) CUDA DeviceMesh against the same
+# steps unsharded (the sharded run fed the unsharded run's greedy tokens);
+# 15b: analysis.flow on meta for yi-6b's prefill of that batch and one
+# decode step, against FlopCounterMode on the card
+SHARDED_SERVE_STEPS = 32
 # the hang watchdog: each phase's limit in seconds, about three times its
 # longest measured time on the H100 (at least two minutes; phase 1 builds
 # the kernels, in seconds here, but nvcc's time varies between machines)
 PHASE_LIMIT_S = {1: 300, 2: 120, 3: 120, 4: 120, 5: 450, 6: 120, 7: 120,
                  8: 120, 9: 150, 10: 120, 11: 500, 12: 300, 13: 450,
-                 14: 240}
+                 14: 240, 15: 180}
 CSRC = "src/repro_torch/kernels/ragged_gather/csrc/"
 SOURCES = {"slab_extract": CSRC + "slab.cu", "slab_merge": CSRC + "slab.cu",
            "slab_step": CSRC + "slab.cu",
@@ -4030,6 +4037,209 @@ def sharding_phase(dev, main_path_launches) -> None:
                                  f"under autograd: {got}")
 
 
+def _timed(fn, dev):
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _serve_run(dev, cfg, params, cache, toks, put, feed=None) -> dict:
+    """A prefill of ``toks`` (run twice, the second timed warm) and
+    SHARDED_SERVE_STEPS decode steps through the step builders, greedy
+    (``feed`` None) or fed ``feed``'s tokens; each step's logits on this
+    rank, the tokens fed, host ms a step (synchronised) and K8's and K9's
+    launches in one prefill and in decode."""
+    from repro_torch.core.dtensor import local
+    from repro_torch.kernels import backend
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    kernels = ("flash_attention", "rglru_scan")
+    before = {k: backend.LAUNCHES[k] for k in kernels}
+    (logits, cache), first_ms = _timed(
+        lambda: prefill(params, put({"tokens": toks}), cache), dev)
+    launched = {"prefill": {k: backend.LAUNCHES[k] - before[k]
+                            for k in kernels}}
+    # again, warm: a prefill writes the same slots and states anew
+    (logits, cache), prefill_ms = _timed(
+        lambda: prefill(params, put({"tokens": toks}), cache), dev)
+    before = {k: backend.LAUNCHES[k] for k in kernels}
+    out = {"logits": [local(logits)], "fed": [], "decode_ms": [],
+           "prefill_ms": prefill_ms, "first_prefill_ms": first_ms}
+    for i in range(SHARDED_SERVE_STEPS):
+        nxt = feed[i] if feed is not None else \
+            out["logits"][-1][:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        out["fed"].append(nxt)
+        (logits, cache), ms = _timed(
+            lambda: decode(params, cache, put({"tokens": nxt})), dev)
+        out["logits"].append(local(logits))
+        out["decode_ms"].append(ms)
+    launched["decode"] = {k: backend.LAUNCHES[k] - before[k]
+                          for k in kernels}
+    out["launched"] = launched
+    return out
+
+
+def sharded_serve_path(dev) -> dict:
+    """Phase 15a: phase 7's yi-6b and phase 8's recurrentgemma-2b, their
+    first batch prefilled and decoded through ``make_prefill_step`` /
+    ``make_decode_step`` on a DTensor state on a (1, 1) CUDA DeviceMesh
+    (parameters by ``tree_param_specs``, cache and tokens by
+    ``tree_auto_specs``), against the same steps unsharded: logits bit
+    for bit, K8 and K9 launched as often, and the host ms of a prefill
+    and of a decode step in each (DTensor's serving dispatch)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.launch.sharding import (distribute, tree_auto_specs,
+                                             tree_param_specs)
+    from repro_torch.models.transformer import init_cache
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    rows = {}
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        for arch, prompt in ((SERVE_ARCH, SERVE_PROMPT), (RG_ARCH, RG_PROMPT)):
+            release()
+            ctx = serve_setup(dev, arch, prompt)
+            cfg, params = ctx.pop("cfg"), ctx.pop("params")
+            toks = first_batch(ctx["queue"], dev)
+            length = toks.shape[1] + SHARDED_SERVE_STEPS
+            want = _serve_run(dev, cfg, params, init_cache(
+                cfg, toks.shape[0], length, dev), toks, lambda b: b)
+            p_specs = tree_param_specs(params, mesh)
+            sp = distribute(params, p_specs, mesh)
+            del params
+            release()
+            cache = init_cache(cfg, toks.shape[0], length, dev)
+            sc = distribute(cache, tree_auto_specs(cache, mesh, 0), mesh)
+            del cache
+            with mesh_context(mesh):
+                got = _serve_run(dev, cfg, sp, sc, toks, lambda b: distribute(
+                    b, tree_auto_specs(b, mesh, batch_dim=0), mesh),
+                    feed=want["fed"])
+            del sp, sc
+            bitwise = all(torch.equal(a, b) for a, b in
+                          zip(got["logits"], want["logits"]))
+            errs = [_rel(a.float(), b.float())
+                    for a, b in zip(got["logits"], want["logits"])]
+            row = {"arch": arch, "batch": list(toks.shape),
+                   "decode_steps": SHARDED_SERVE_STEPS, "bitwise": bitwise,
+                   "worst_rel": max(errs), "limit": SERVE_TOL,
+                   "launches_sharded": got["launched"],
+                   "launches_unsharded": want["launched"],
+                   "prefill_ms_sharded": got["prefill_ms"],
+                   "prefill_ms_unsharded": want["prefill_ms"],
+                   "first_prefill_ms_sharded": got["first_prefill_ms"],
+                   "first_prefill_ms_unsharded": want["first_prefill_ms"],
+                   "decode_ms_sharded": float(np.median(got["decode_ms"])),
+                   "decode_ms_unsharded": float(np.median(
+                       want["decode_ms"]))}
+            rows[arch] = row
+            log(f"  15a {arch} on a (1, 1) mesh: prefill of "
+                f"{tuple(toks.shape)} + {SHARDED_SERVE_STEPS} decode steps, "
+                f"logits {'bitwise' if bitwise else 'NOT bitwise'} (worst "
+                f"rel {max(errs):.3e}); launches sharded {got['launched']}, "
+                f"unsharded {want['launched']}; prefill ms (warm) "
+                f"{got['prefill_ms']:.1f} sharded, {want['prefill_ms']:.1f} "
+                f"unsharded (first {got['first_prefill_ms']:.1f} / "
+                f"{want['first_prefill_ms']:.1f}); decode ms a step {row['decode_ms_sharded']:.2f} "
+                f"sharded, {row['decode_ms_unsharded']:.2f} unsharded "
+                f"(DTensor's serving dispatch; placements on size-1 mesh "
+                f"dims move no bytes)")
+            if got["launched"] != want["launched"]:
+                raise AssertionError(f"15a {arch}: K8/K9 launched "
+                                     f"{got['launched']} sharded, "
+                                     f"{want['launched']} unsharded")
+            if not bitwise and max(errs) > SERVE_TOL:
+                raise AssertionError(f"15a {arch}: sharded logits differ: "
+                                     f"{errs}")
+        return rows
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_card_path(dev) -> dict:
+    """Phase 15b: ``analysis.flow`` on meta tensors for yi-6b's prefill of
+    phase 7's first batch and one decode step, then the same steps on the
+    card under ``FlopCounterMode``: the dot FLOPs must be equal; the meta
+    estimate of the peak bytes beyond the arguments beside the card's
+    rise of ``max_memory_allocated`` over them (reported, not gated)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.analysis.flow import trace_step
+    from repro_torch.models.transformer import init_cache, init_params
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    ctx = serve_setup(dev, SERVE_ARCH, SERVE_PROMPT)
+    cfg, params = ctx["cfg"], ctx["params"]
+    toks = first_batch(ctx["queue"], dev)
+    B, plen = toks.shape
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    pm = init_params(cfg, None, device="meta")
+    tm = torch.empty((B, plen), dtype=toks.dtype, device="meta")
+    t0 = time.perf_counter()
+    _, mp = trace_step(prefill, pm, {"tokens": tm},
+                       init_cache(cfg, B, plen + 1, device="meta"))
+    _, md = trace_step(decode, pm, init_cache(cfg, B, plen + 1,
+                                              device="meta"),
+                       {"tokens": tm[:, :1]})
+    meta_s = time.perf_counter() - t0
+    cache = init_cache(cfg, B, plen + 1, dev)
+    rows = {}
+    for name, meta, fn in (
+            ("prefill", mp, lambda: prefill(params, {"tokens": toks},
+                                            cache)),
+            ("decode", md, lambda: decode(params, cache,
+                                          {"tokens": nxt}))):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        with FlopCounterMode(display=False) as fc:
+            logits, cache = fn()
+        torch.cuda.synchronize(dev)
+        rise = torch.cuda.max_memory_allocated(dev) - base
+        nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        rows[name] = {"meta_dot_flops": meta.flow.dot_flops,
+                      "card_dot_flops": fc.get_total_flops(),
+                      "meta_peak_bytes": meta.peak_bytes,
+                      "card_peak_rise_bytes": rise,
+                      "peak_ratio": meta.peak_bytes / max(rise, 1),
+                      "meta_traffic_bytes": meta.flow.traffic_bytes}
+        log(f"  15b {SERVE_ARCH} {name} {tuple(toks.shape)}: dot FLOPs "
+            f"{meta.flow.dot_flops:.6e} on meta, {fc.get_total_flops():.6e} "
+            f"on the card; peak beyond the arguments {meta.peak_bytes} B "
+            f"estimated on meta, {rise} B risen on the card (ratio "
+            f"{rows[name]['peak_ratio']:.3f})")
+        if int(meta.flow.dot_flops) != fc.get_total_flops():
+            raise AssertionError(f"15b {name}: the meta FLOPs "
+                                 f"{meta.flow.dot_flops} are not the card's "
+                                 f"{fc.get_total_flops()}")
+    rows["meta_s"] = meta_s
+    return rows
+
+
+def sharded_serving_phase(dev, main_path_launches) -> None:
+    """Phase 15: the serving steps on a DTensor state (15a) and the
+    dry-run's analysis held to the card (15b)."""
+    t0 = time.perf_counter()
+    rows = main_path_launches("sharded serving (15a)",
+                              ("flash_attention", "rglru_scan"),
+                              lambda: sharded_serve_path(dev))
+    log(json.dumps({"sharded_serve_path": rows}))
+    log(f"  phase 15a s: {time.perf_counter() - t0:.1f}")
+    release()
+    t1 = time.perf_counter()
+    log(json.dumps({"dryrun_card_path": dryrun_card_path(dev)}))
+    log(f"  phase 15b s: {time.perf_counter() - t1:.1f}")
+
+
 def breakdown(p: dict) -> dict:
     """A profile's device time split into K8, K9, the GEMMs and the rest."""
     by = p["device_ms_per_round"]
@@ -4344,6 +4554,13 @@ def main() -> int:
     t0 = time.perf_counter()
     sharding_phase(dev, main_path_launches)
     log(f"  phase 14 s: {time.perf_counter() - t0:.1f}")
+
+    watch.start(15, "the serving cells executed sharded (yi-6b and "
+                "recurrentgemma-2b on a (1, 1) CUDA DeviceMesh) and the "
+                "dry-run's analysis held to the card")
+    t0 = time.perf_counter()
+    sharded_serving_phase(dev, main_path_launches)
+    log(f"  phase 15 s: {time.perf_counter() - t0:.1f}")
     watch.stop()
     for name, n in launches.items():
         record[name]["launches"] = n

@@ -95,11 +95,16 @@ def replicated(t):
 def shard_start(t: DTensor, dim: int) -> int:
     """The global index of the first element of ``t``'s local shard along
     tensor dim ``dim`` (0 where that dim is not sharded)."""
+    return shard_offset(t.shape, t.device_mesh, t.placements, dim)
+
+
+def shard_offset(shape, mesh, places, dim: int) -> int:
+    """:func:`shard_start` of a tensor of global ``shape`` laid out by
+    ``places`` on ``mesh``."""
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
 
-    _, offset = compute_local_shape_and_global_offset(
-        t.shape, t.device_mesh, t.placements)
+    _, offset = compute_local_shape_and_global_offset(shape, mesh, places)
     return int(offset[dim])
 
 
@@ -139,3 +144,39 @@ def max_over_ranks(t: torch.Tensor, groups: list) -> torch.Tensor:
     for g in groups:
         t = funcol.wait_tensor(funcol.all_reduce(t, "max", g))
     return t
+
+
+def whole_units(t, dim: int, n: int):
+    """``t`` with tensor dim ``dim`` split into ``n`` equal units (heads)
+    sharded only where the mesh dims that shard it split whole units: a
+    DTensor whose shards of ``dim`` cut through a unit (``n`` not a
+    multiple of their count) has those mesh dims replicated, so ``dim``
+    can be unflattened into ``(n, size // n)``.  Anything else as it is."""
+    if not is_dtensor(t):
+        return t
+    dim %= t.ndim
+    mesh = t.device_mesh
+    cut = [i for i, p in enumerate(t.placements)
+           if isinstance(p, Shard) and p.dim == dim]
+    ways = 1
+    for i in cut:
+        ways *= mesh.size(i)
+    if n % ways == 0:
+        return t
+    return t.redistribute(mesh, [Replicate() if i in cut else p
+                                 for i, p in enumerate(t.placements)])
+
+
+def laid_like(t, ref):
+    """``t`` in ``ref``'s layout where ``ref`` is a DTensor: redistributed
+    (:func:`placed`) when ``t`` is one; when it is a plain tensor with
+    the same value on every rank, each rank keeps its own slice (no
+    collective).  ``t`` as it is when ``ref`` is plain."""
+    if not is_dtensor(ref):
+        return t
+    if is_dtensor(t):
+        return placed(t, ref)
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False).redistribute(mesh,
+                                                            ref.placements)

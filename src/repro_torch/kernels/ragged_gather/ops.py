@@ -7,7 +7,10 @@ A tensor on the CPU goes to the plain PyTorch version in ``ref.py``; a
 CUDA tensor launches the hand-written kernel in ``kernel.py`` or raises.
 The switch (``use_kernels``, behind ``core.use_kernel_dataplane``) and the
 launch counts (``LAUNCHES``) live in ``kernels.backend``, shared with
-attention's K8.
+attention's K8.  K6 and K7, the gathers a model runs, are the custom ops
+``repro_torch::ragged_gather`` and ``repro_torch::ragged_scatter``, whose
+fake kernels give their outputs' shapes, so a step on ``meta`` or fake
+tensors traces through the ops the card launches.
 """
 from __future__ import annotations
 
@@ -86,11 +89,21 @@ def ragged_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     autograd would record raises (the MoE layer then gathers with
     ``ref.ragged_gather_ref``, which is differentiable)."""
     refuse_grad("ragged_gather (K6)", x)
+    return _ragged_gather(x, idx)
+
+
+@torch.library.custom_op("repro_torch::ragged_gather", mutates_args=())
+def _ragged_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if not use_kernel(x):
         return ref.ragged_gather_ref(x, idx)
     out, launched = kernel.ragged_gather_cuda(x, idx)
     LAUNCHES["ragged_gather"] += launched
     return out
+
+
+@_ragged_gather.register_fake
+def _(x, idx):
+    return x.new_empty((idx.shape[0], x.shape[1]))
 
 
 def pack_blocks(blocks: torch.Tensor, sizes: torch.Tensor,
@@ -110,11 +123,22 @@ def ragged_scatter(x: torch.Tensor, idx: torch.Tensor,
     """K7: ``out[idx[i]] = x[i]`` over a zero ``(n_out, F)`` buffer, for
     any dtype and row width; rows whose destination is outside
     ``[0, n_out)`` are dropped.  ``idx`` is int32."""
+    return _ragged_scatter(x, idx, n_out)
+
+
+@torch.library.custom_op("repro_torch::ragged_scatter", mutates_args=())
+def _ragged_scatter(x: torch.Tensor, idx: torch.Tensor,
+                    n_out: int) -> torch.Tensor:
     if not use_kernel(x):
         return ref.ragged_scatter_ref(x, idx, n_out)
     out, launched = kernel.ragged_scatter_cuda(x, idx, n_out)
     LAUNCHES["ragged_scatter"] += launched
     return out
+
+
+@_ragged_scatter.register_fake
+def _(x, idx, n_out):
+    return x.new_empty((n_out, x.shape[1]))
 
 
 def unpack_blocks(packed: torch.Tensor, sizes: torch.Tensor,

@@ -34,8 +34,8 @@ from torch import nn
 from ..configs.base import MoEConfig
 from ..core.carry import params_from_numpy
 from ..core.dtensor import (batch_sharded, from_shards, full, groups_of,
-                           is_dtensor, on_mesh, replicated, shard_start,
-                           sum_over_ranks)
+                           is_dtensor, on_mesh, placed, replicated,
+                           shard_start, sum_over_ranks)
 from ..core.mesh import resolve_device
 from ..kernels.backend import needs_grad
 from ..kernels.ragged_gather import ops, ref
@@ -89,8 +89,11 @@ def route(logits: torch.Tensor, top_k: int, capacity: int) -> Routing:
     tid_s = tid.gather(1, order)
     pr_s = probs.reshape(G, Tl * top_k).gather(1, order)
     group = torch.arange(G, device=dev)[:, None]
-    counts = torch.bincount((eid + group * E).reshape(-1),
-                            minlength=G * E).view(G, E)
+    # a scatter-add of ones, not bincount: the same integers, and a meta
+    # kernel, so a step on meta tensors traces through the routing
+    slots = (eid + group * E).reshape(-1)
+    counts = torch.zeros(G * E, dtype=torch.int64, device=dev).scatter_add_(
+        0, slots, torch.ones_like(slots)).view(G, E)
     starts = torch.cumsum(counts, 1) - counts
     pos = torch.arange(Tl * top_k, device=dev)[None] - starts.gather(1, eid_s)
     keep = pos < capacity
@@ -233,12 +236,17 @@ def _moe_on_mesh(p: dict, x, cfg: MoEConfig, capacity: int | None):
     C = capacity if capacity is not None else capacity_for(cfg, Tl)
     x = batch_sharded(x)
     mesh = x.device_mesh
-    bdims = [i for i, pl in enumerate(x.placements) if pl == Shard(0)]
+    # the mesh dims that split the batch (a size-1 dim splits nothing, and
+    # a shard of a size-1 group dim is one DTensor cannot view away)
+    bdims = [i for i, pl in enumerate(x.placements)
+             if pl == Shard(0) and mesh.size(i) > 1]
     nb = B // x.to_local().shape[0]
     Tn = B * S // nb                          # this rank's tokens
     t0 = shard_start(x, 0) * S                # its first, of all B * S
     xl = x.to_local().reshape(Tn, D)
-    logits = batch_sharded(torch.matmul(x.float(), p["router"].float()))
+    # laid out as x: a product may keep the batch shards of some mesh
+    # dims only (the two-pod mesh's decode)
+    logits = placed(torch.matmul(x.float(), p["router"].float()), x)
     ll = logits.to_local().detach().reshape(Tn, E)
     grouped = G % nb == 0
     if grouped:                               # this rank's G // nb groups

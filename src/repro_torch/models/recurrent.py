@@ -24,6 +24,11 @@ fp32) for long sequences, and as a one-step recurrence in decode; the
 sLSTM as a true recurrence, a Python loop over time (about twenty small
 launches a step on the card).  Their states are fp32 whatever the model's
 dtype, the stabilisers ``m`` starting at -1e30, as in the reference.
+
+On a mesh (DTensor activations and states) K9 scans each rank's local
+batch and channel shards (:func:`_scan`), the mLSTM's memory runs on
+each rank's batch and head shards (:func:`_mlstm_on_shards`), and the
+sLSTM's loop on every rank's full copy of its inputs and state.
 """
 from __future__ import annotations
 
@@ -32,7 +37,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..core.dtensor import full, on_mesh
+from ..core.dtensor import (from_shards, full, is_dtensor, keep_shards,
+                           on_mesh, whole_units)
 from ..kernels.backend import needs_grad
 from ..kernels.rg_lru.ops import rglru_scan
 from .layers import trunc_normal
@@ -141,6 +147,30 @@ def _train_scan(a: torch.Tensor, b: torch.Tensor, chunk: int):
     return torch.cat(hs, dim=1), h0
 
 
+def _scan(a: torch.Tensor, b: torch.Tensor):
+    """K9 from h0 = 0 → ``(h, h_last)``.  On DTensors on each rank's
+    shards: the recurrence is independent per batch row and channel, so
+    a and b keep their shards of those dims, the rest replicated (the
+    time dim whole), and K9 scans the rank's local tensors."""
+    if not is_dtensor(a):
+        B, _, D = a.shape
+        return rglru_scan(a, b, torch.zeros((B, D), dtype=torch.float32,
+                                            device=a.device))
+    from torch.distributed.tensor import DTensor, Shard
+
+    a, b = keep_shards(a, (0, 2)), keep_shards(b, (0, 2))
+    al, bl = a.to_local(), b.to_local()
+    h, h_last = rglru_scan(al, bl, torch.zeros(
+        (al.shape[0], al.shape[2]), dtype=torch.float32, device=al.device))
+    mesh = a.device_mesh
+    last = [Shard(1) if p == Shard(2) else p for p in a.placements]
+    B, _, D = a.shape
+    return (DTensor.from_local(h, mesh, a.placements, run_check=False,
+                               shape=a.shape, stride=a.stride()),
+            DTensor.from_local(h_last, mesh, last, run_check=False,
+                               shape=torch.Size((B, D)), stride=(D, 1)))
+
+
 def rglru_block(p: dict, x: torch.Tensor, state: dict | None = None,
                 chunk: int = 256):
     """x ``(B, T, D)``; ``state`` None (train and prefill, from zero) or
@@ -156,9 +186,7 @@ def rglru_block(p: dict, x: torch.Tensor, state: dict | None = None,
     if state is None and needs_grad(a, b):
         h, new_h = _train_scan(a, b, chunk)
     elif state is None:
-        B, _, D = x.shape
-        h, new_h = rglru_scan(a, b, torch.zeros((B, D), dtype=torch.float32,
-                                                device=x.device))
+        h, new_h = _scan(a, b)
     else:
         h0 = state["h"].float()
         h = a[:, 0] * h0 + b[:, 0]
@@ -204,14 +232,11 @@ def _mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fp32.  Returns ``(h (B, T, H, hd) fp32, final state)``."""
     B, T, H, hd = q.shape
     qf, kf, vf = q.float(), k.float(), v.float()
-    tril = on_mesh(torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                         device=q.device)), q)
-    C0 = on_mesh(torch.zeros((B, H, hd, hd), dtype=torch.float32,
-                             device=q.device), q)
-    n0 = on_mesh(torch.zeros((B, H, hd), dtype=torch.float32,
-                             device=q.device), q)
-    m0 = on_mesh(torch.full((B, H), -1e30, dtype=torch.float32,
-                            device=q.device), q)
+    tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=q.device))
+    C0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=q.device)
+    n0 = torch.zeros((B, H, hd), dtype=torch.float32, device=q.device)
+    m0 = torch.full((B, H), -1e30, dtype=torch.float32, device=q.device)
     hs = []
     for t0 in range(0, T, chunk):
         qc, kc, vc = (x[:, t0: t0 + chunk] for x in (qf, kf, vf))
@@ -245,28 +270,14 @@ def _mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(hs, dim=1), {"C": C0, "n": n0, "m": m0}
 
 
-def mlstm_block(p: dict, x: torch.Tensor, n_heads: int,
-                state: dict | None = None, want_state: bool = False,
-                chunk: int = 256):
-    """xLSTM's mLSTM, a matrix memory.  x ``(B, T, D)``.  From zero
-    (``state`` None): the parallel stabilised form, or
-    :func:`_mlstm_chunkwise` when ``T > 2 * chunk`` and ``T % chunk ==
-    0``; ``want_state`` also returns the final ``{"C", "n", "m"}``
-    (prefill).  With ``state`` (decode, T = 1): the recurrent form.
-    Returns ``(out, new_state)``."""
-    H = n_heads
-    B, T, D = x.shape
-    hd = D // H
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, T, H, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, T, H, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, T, H, hd)
-    log_i = (x @ p["wi"].to(x.dtype)).float()                  # (B,T,H)
-    # DTensor has no sharding rule for logsigmoid's backward: on a mesh it
-    # runs on every rank's whole copy of its (B, T, H) input
-    f = (x @ p["wf"].to(x.dtype)).float()
-    log_f = on_mesh(F.logsigmoid(full(f)), f)                  # (B,T,H)
+def _mlstm_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 log_i: torch.Tensor, log_f: torch.Tensor,
+                 state: dict | None, want_state: bool, chunk: int):
+    """The mLSTM's memory over heads: q, k, v ``(B, T, H, hd)``, the
+    gates ``(B, T, H)`` in fp32, ``state`` as :func:`mlstm_block`'s.
+    Returns ``(h (B, T, H, hd) fp32, new_state)``."""
+    B, T, H, hd = q.shape
     scale = 1.0 / math.sqrt(hd)
-
     if state is None and T > 2 * chunk and T % chunk == 0:
         h, new_state = _mlstm_chunkwise(q, k.float() * scale, v, log_i,
                                         log_f, chunk)
@@ -275,8 +286,8 @@ def mlstm_block(p: dict, x: torch.Tensor, n_heads: int,
     elif state is None:
         bcum = torch.cumsum(log_f, dim=1)                      # (B,T,H)
         logd = bcum[:, :, None] - bcum[:, None, :] + log_i[:, None, :]
-        tril = on_mesh(torch.tril(torch.ones((T, T), dtype=torch.bool,
-                                             device=x.device)), x)
+        tril = torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                     device=q.device))
         logd = torch.where(tril[None, :, :, None], logd, -math.inf)
         m = torch.amax(logd, dim=2, keepdim=True)              # (B,t,1,H)
         dmat = torch.exp(logd - m)
@@ -311,6 +322,65 @@ def mlstm_block(p: dict, x: torch.Tensor, n_heads: int,
                             torch.exp(-m1))
         h = (num / den[..., None])[:, None]                    # (B,1,H,hd)
         new_state = {"C": C1, "n": n1, "m": m1}
+    return h, new_state
+
+
+def _mlstm_on_shards(q, k, v, log_i, log_f, state, want_state: bool,
+                     chunk: int):
+    """:func:`_mlstm_heads` of DTensors on each rank's shards: the memory
+    is independent per batch row and head, so every input keeps its
+    batch shards and its head shards where the heads split, the rest
+    replicated, and each rank runs its local tensors.  The state ``(B,
+    H, ...)`` is laid out the same way."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, H = q.device_mesh, q.shape[2]
+    places = [Shard(p.dim) if isinstance(p, Shard) and (
+        p.dim == 0 or (p.dim == 2 and H % mesh.size(i) == 0))
+        else Replicate() for i, p in enumerate(q.placements)]
+    st_places = [Shard(1) if p == Shard(2) else p for p in places]
+
+    def lay(t, pl):
+        return on_mesh(t, q).redistribute(mesh, pl).to_local()
+    h, new = _mlstm_heads(
+        *(lay(t, places) for t in (q, k, v, log_i, log_f)),
+        None if state is None else {n: lay(t, st_places)
+                                    for n, t in state.items()},
+        want_state, chunk)
+    B, T, _, hd = q.shape
+    h = from_shards(h.contiguous(), mesh, places, (B, T, H, hd))
+    if new is not None:
+        shapes = {"C": (B, H, hd, hd), "n": (B, H, hd), "m": (B, H)}
+        new = {n: from_shards(t.contiguous(), mesh, st_places, shapes[n])
+               for n, t in new.items()}
+    return h, new
+
+
+def mlstm_block(p: dict, x: torch.Tensor, n_heads: int,
+                state: dict | None = None, want_state: bool = False,
+                chunk: int = 256):
+    """xLSTM's mLSTM, a matrix memory.  x ``(B, T, D)``.  From zero
+    (``state`` None): the parallel stabilised form, or
+    :func:`_mlstm_chunkwise` when ``T > 2 * chunk`` and ``T % chunk ==
+    0``; ``want_state`` also returns the final ``{"C", "n", "m"}``
+    (prefill).  With ``state`` (decode, T = 1): the recurrent form.
+    Returns ``(out, new_state)``."""
+    H = n_heads
+    B, T, D = x.shape
+    hd = D // H
+    q, k, v = (whole_units(x @ p[w].to(x.dtype), 2, H).reshape(B, T, H, hd)
+               for w in ("wq", "wk", "wv"))
+    log_i = (x @ p["wi"].to(x.dtype)).float()                  # (B,T,H)
+    # DTensor has no sharding rule for logsigmoid's backward: on a mesh it
+    # runs on every rank's whole copy of its (B, T, H) input
+    f = (x @ p["wf"].to(x.dtype)).float()
+    log_f = on_mesh(F.logsigmoid(full(f)), f)                  # (B,T,H)
+    if is_dtensor(q):
+        h, new_state = _mlstm_on_shards(q, k, v, log_i, log_f, state,
+                                        want_state, chunk)
+    else:
+        h, new_state = _mlstm_heads(q, k, v, log_i, log_f, state,
+                                    want_state, chunk)
     h = h.reshape(B, T, D).to(x.dtype)
     g = F.silu(x @ p["wg"].to(x.dtype))
     return (h * g) @ p["wo"].to(x.dtype), new_state
@@ -362,7 +432,7 @@ def slstm_block(p: dict, x: torch.Tensor, n_heads: int,
         c, n, h = z, z, z
         m = torch.full((B, D), -1e30, dtype=torch.float32, device=gx.device)
     else:
-        c, n, m, h = state["c"], state["n"], state["m"], state["h"]
+        c, n, m, h = (full(state[k]) for k in "cnmh")
     one = torch.ones((), dtype=torch.float32, device=gx.device)
     hs = []
     for t in range(T):

@@ -32,7 +32,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
-from ..core.dtensor import on_mesh
+from ..core.dtensor import laid_like, on_mesh
 from ..core.mesh import resolve_device
 from . import attention as attn
 from . import recurrent as rec
@@ -144,7 +144,9 @@ def _apply_block(p: dict, kind: str, cfg: ArchConfig, x: torch.Tensor, *,
         else:
             r, st = rec.slstm_block(p["rec"], h, cfg.n_heads, st_in)
         if mode != "train" and st is not None:
-            new_cache = dict(cache, rec=st)
+            # a cache on the mesh keeps its layout from step to step
+            new_cache = dict(cache, rec={k: laid_like(t, cache["rec"][k])
+                                         for k, t in st.items()})
         x = x + r
         if kind == "rglru":
             x = x + mlp(p["ffn"], rmsnorm(p["norm2"], x), cfg.act)

@@ -141,6 +141,15 @@ assert ins[0].params["embed"]["e"] == sharding_rules.PartitionSpec(
     None, "model")    # 49155 rows do not split: model on d, no FSDP
 assert lmesh.current_mesh() is None
 assert act_sharding.residual_constraint(torch.ones(2, 3, 4)).shape == (2, 3, 4)
+from repro_torch.analysis import collective_stats
+from repro_torch.analysis.flow import analyze_step
+from repro_torch.launch import dryrun
+assert len(list(dryrun.iter_cells())) == 66
+qm = torch.empty(1, 4, 9, 16, device="meta")
+fl = analyze_step(lambda q: flash_attention(q, q[:, :2], q[:, :2]) @
+                  torch.empty(16, 8, device="meta"), qm)
+assert fl.dot_flops == 4 * 4 * 9 * 9 * 16 + 2 * 36 * 16 * 8
+assert collective_stats(torch.add, qm, 1)[1].total_ops == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
@@ -163,14 +172,19 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    examples = os.path.join(REPO, "examples")
+    for f in sorted(os.listdir(examples)):
+        if f.startswith("torch_") and f.endswith(".py"):
+            yield os.path.join(examples, f)
 
 
 def test_no_source_imports_jax_or_repro():
     files = list(_port_files())
     assert len(files) > 10
+    assert sum(os.sep + "examples" + os.sep in f for f in files) == 4
     for sub in ("core", "kernels", "models", "configs", "train", "launch",
                 "obs", "tuner", "flash_attention", "rg_lru", "data", "optim",
-                "checkpoint", "runtime"):
+                "checkpoint", "runtime", "analysis"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
     for path in files:
         with open(path) as fh:

@@ -41,6 +41,19 @@ leaf's placements are as ``train_state_specs`` gives, and at least one
 leaf is sharded on each mesh axis.  Then reduced granite's parameters
 saved from the ``(4, 2)`` mesh (files byte-identical to the unsharded
 tree's save) and restored onto ``(2, 4)`` and ``(8, 1)`` bitwise.
+
+Serving on the same mesh (``SERVE_CASES``): reduced granite-3-2b with 6
+query and 3 kv heads (3 does not divide ``model``'s 2, so the kv
+projections are replicated before their heads split), mixtral-8x7b (the
+MoE layer's decode on the mesh), recurrentgemma-2b under ``kv_int8``
+(RG-LRU states and a quantized ring of 16 slots that wraps) and
+xlstm-125m (mLSTM and sLSTM states), on random weights from a seed: a
+prefill of 24 tokens and ``SERVE_STEPS`` decode steps through
+``make_prefill_step`` / ``make_decode_step`` on a DTensor state laid out
+by ``tree_param_specs`` / ``tree_auto_specs``, every step's logits within
+``LEAF_RTOL`` relative Frobenius of the unsharded steps', and every cache
+leaf in its spec's layout after the last step.  The caches' slots are
+sharded over ``model``, so decode combines each rank's softmax partials.
 """
 from __future__ import annotations
 
@@ -75,6 +88,11 @@ MOE_VARIANTS = ("moe_local,moe_tp_only,tp_only",)
 LANE_CASES = [(a, v) for a in LANE_ARCHS for v in LANE_VARIANTS] + [
     ("mixtral-8x7b", v) for v in MOE_VARIANTS]
 RESTORE_MESHES = ((2, 4), (8, 1))
+# serving cases: (arch, variant); "heads6x3" is the reduced config with 6
+# query and 3 kv heads
+SERVE_CASES = (("granite-3-2b", "heads6x3"), ("mixtral-8x7b", "baseline"),
+               ("recurrentgemma-2b", "kv_int8"), ("xlstm-125m", "baseline"))
+SERVE_T, SERVE_LEN, SERVE_STEPS = 24, 28, 3
 # phase 12b's schedule: the lr ramps up from lr / 20, so Adam's first
 # steps, which move each weight by about lr whatever the size of its
 # gradient, do not turn rounding-sized gradients into weight differences
@@ -283,6 +301,71 @@ def _restore_lane(rank: int, params, tmp: str) -> list:
     return lines
 
 
+def _slstm_fan_in(params, cfg) -> None:
+    """Scales the sLSTM's ``rh`` to its fan-in ``hd``, in place (at the
+    reference's init the recurrence is chaotic, ROADMAP Queue 3)."""
+    from repro_torch.core.tree import leaves_with_path
+
+    s = (cfg.n_heads / (cfg.d_model // cfg.n_heads)) ** 0.5
+    for path, t in leaves_with_path(params):
+        if path[-1] == "rh":
+            t.mul_(s)
+
+
+def _serve_case(mesh, arch: str, variant: str) -> dict:
+    """A prefill and ``SERVE_STEPS`` decode steps of reduced ``arch`` on a
+    DTensor state against the same steps unsharded."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves_with_path, tree_leaves
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.launch.sharding import (distribute, tree_auto_specs,
+                                             tree_param_specs)
+    from repro_torch.launch.specs import apply_variant
+    from repro_torch.models.transformer import init_cache, init_params
+    from repro_torch.sharding_rules import PartitionSpec, placements
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    cfg = get_config(arch).reduced()
+    if variant == "heads6x3":
+        cfg = cfg.with_(n_heads=6, n_kv_heads=3)
+    else:
+        cfg, _ = apply_variant(cfg, variant, mesh)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    if arch == "xlstm-125m":
+        _slstm_fan_in(params, cfg)
+    cache = init_cache(cfg, LANE_B, SERVE_LEN, "cpu")
+    rng = np.random.default_rng(7)
+    tok = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LANE_B, SERVE_T + SERVE_STEPS)).astype(np.int32))
+    batches = [{"tokens": tok[:, :SERVE_T]}] + [
+        {"tokens": tok[:, SERVE_T + i: SERVE_T + i + 1]}
+        for i in range(SERVE_STEPS)]
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+
+    def run(p, c, put):
+        logits, c = prefill(p, put(batches[0]), c)
+        out = [logits]
+        for b in batches[1:]:
+            logits, c = decode(p, c, put(b))
+            out.append(logits)
+        return out, c
+
+    want, _ = run(params, _clone(cache), lambda b: b)
+    c_specs = tree_auto_specs(cache, mesh, batch_dim=0)
+    sp = distribute(_clone(params), tree_param_specs(params, mesh), mesh)
+    sc = distribute(_clone(cache), c_specs, mesh)
+    with mesh_context(mesh):
+        got, sc = run(sp, sc, lambda b: distribute(
+            b, tree_auto_specs(b, mesh, batch_dim=0), mesh))
+    errs = [_rel(g.full_tensor(), w) for g, w in zip(got, want)]
+    assert max(errs) <= LEAF_RTOL, (arch, variant, errs)
+    specs = tree_leaves(c_specs, is_leaf=lambda x: isinstance(x,
+                                                              PartitionSpec))
+    for (path, t), spec in zip(leaves_with_path(sc), specs):
+        assert tuple(t.placements) == placements(spec, mesh), path
+    return {"worst": max(errs), "steps": len(errs)}
+
+
 def _lane_worker(rank: int, init_file: str, tmp: str) -> None:
     import logging
     import time
@@ -313,6 +396,15 @@ def _lane_worker(rank: int, init_file: str, tmp: str) -> None:
         for line in _restore_lane(rank, granite, tmp):
             if rank == 0:
                 print(line, flush=True)
+        t1 = time.perf_counter()
+        for arch, variant in SERVE_CASES:
+            t2 = time.perf_counter()
+            got = _serve_case(mesh, arch, variant)
+            if rank == 0:
+                print(f"SERVE {_case_id(arch, variant)} PASSED {got} in "
+                      f"{time.perf_counter() - t2:.1f} s", flush=True)
+        if rank == 0:
+            print(f"SERVING s: {time.perf_counter() - t1:.1f}", flush=True)
         dist.barrier()
         if rank == 0:
             print(f"SHARDING LANE PASSED in {time.perf_counter() - t0:.1f} s",
@@ -588,6 +680,19 @@ def test_sharded_bytes_and_microbatches_match_the_reference(arch, mesh):
         jspecs.auto_microbatches(jcfg, jspecs.SHAPES["train_4k"], jm)
 
 
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_auto_microbatches_match_the_reference(arch, shape, mesh):
+    """``auto_microbatches`` of every shape, not the train shape alone,
+    under each arch's ``dryrun_config`` on both production meshes."""
+    sizes = MESHES[mesh]
+    jcfg, _ = jspecs.dryrun_config(arch)
+    pcfg, _ = pspecs.dryrun_config(arch)
+    assert pspecs.auto_microbatches(pcfg, SHAPES[shape], _pmesh(sizes)) == \
+        jspecs.auto_microbatches(jcfg, jspecs.SHAPES[shape], _jmesh(sizes))
+
+
 VARIANTS = ("baseline", "moe_local", "kv_int8", "accum_bf16", "grad_shard",
             "mb4", "remat_dots", "fsdp_gather", "moe_tp_only", "tp_only",
             "moe_local,kv_int8,accum_bf16,mb4", "grad_shard,tp_only,mb2", "")
@@ -800,10 +905,7 @@ def _lane_inputs(tmp) -> None:
     for arch in LANE_ARCHS:
         _, cfg, _, ps = _port_state(arch)
         if arch == "xlstm-125m":
-            s = (cfg.n_heads / (cfg.d_model // cfg.n_heads)) ** 0.5
-            for path, t in leaves_with_path(ps.params):
-                if path[-1] == "rh":
-                    t.mul_(s)
+            _slstm_fan_in(ps.params, cfg)
         np.savez(tmp / f"{arch}.npz",
                  *[t.numpy() for t in tree_leaves(ps.params)])
 
@@ -838,6 +940,12 @@ def _lane_ok(lane) -> str:
                          ids=[_case_id(*c) for c in LANE_CASES])
 def test_sharded_step_matches_the_unsharded_step(lane, arch, variant):
     assert f"CASE {_case_id(arch, variant)} PASSED" in _lane_ok(lane)
+
+
+@pytest.mark.parametrize("arch,variant", SERVE_CASES,
+                         ids=[_case_id(*c) for c in SERVE_CASES])
+def test_sharded_serving_matches_the_unsharded_steps(lane, arch, variant):
+    assert f"SERVE {_case_id(arch, variant)} PASSED" in _lane_ok(lane)
 
 
 def test_sharded_save_writes_the_unsharded_files(lane):
