@@ -8,8 +8,33 @@ reduce_scatterv combine planned through
 :class:`~repro_torch.tuner.serving.ServingPlanner` (``--experts``, 4 by
 default as in the reference; 0 turns it off), so raw per-step size
 vectors collapse onto padded signature classes and the steady-state loop
-plans nothing new.  Per-step spans feed the ``repro_torch.obs`` trace
-plane (run under ``REPRO_TORCH_TRACE=1``, or export with ``--trace-out``).
+plans nothing new.
+
+Tracing (``repro_torch.obs.trace``; on under ``REPRO_TORCH_TRACE=1``, or
+for one run with ``--trace-out``, which writes the Chrome-trace JSON)
+records a span tree a batch, and nothing when off:
+
+* ``serve/batch`` (args ``batch``, its index in the call, ``B``,
+  ``plen`` and ``requests``, its requests' queue indices): the root whose
+  id every span of the batch descends from;
+* ``serve/prefill``: the prefill call up to its device sync;
+* ``serve/decode_step`` (arg ``step``): the host's enqueue of one decode
+  step, up to its greedy token, with no sync: the host's time, not the
+  device's;
+* under those, ``model/attention`` and ``model/moe`` a block
+  (``models/transformer.py``), and under ``model/moe`` the spans
+  ``moe/route``, ``moe/dispatch``, ``moe/experts``, ``moe/combine`` (and
+  a second ``moe/experts``, the shared MLP, where there is one) and the
+  counts ``moe_pairs_routed`` and ``moe_pairs_dropped``
+  (``models/moe.py``), whose device values are read once, after the
+  batch's served tokens;
+* with the planner on, its ``serve/plan_step`` and ``serve/prefetch``
+  spans (``tuner/serving.py``) and the ``plan/<op>`` span of each plan it
+  builds, between the decode steps.
+
+While ``torch.profiler`` records, each span is also a ``record_function``
+range, so a profile holds the program's spans around the kernels they
+launch.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-2b --reduced --device cpu --requests 8 \\
@@ -109,39 +134,43 @@ def serve_requests(params: dict, cfg, queue: list, batch: int, gen: int,
         prompts = pop_batch(queue, batch)
         b = len(prompts)
         plen = max(len(p) for p in prompts)
-        toks = np.zeros((b, plen), np.int32)
-        for i, p in enumerate(prompts):
-            toks[i, plen - len(p):] = p   # left-pad (simple alignment)
-        cache = init_cache(cfg, b, plen + gen, device)
-        t_pre = time.perf_counter()
-        logits, cache = prefill(
-            params, {"tokens": torch.from_numpy(toks).to(device)}, cache)
-        cur = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
-        _sync(device)
-        t_dec = time.perf_counter()
-        prefill_s.append(t_dec - t_pre)
-        picked = [cur]
-        for _ in range(gen):
-            t_step = time.perf_counter()
-            logits, cache = decode(params, cache, {"tokens": cur})
-            cur = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
-            picked.append(cur)
-            if serving is not None:
-                S, n = route_step(cur.cpu().numpy(), experts, top_k, step_id)
-                serving.plan_step("alltoallv", S, row_bytes=row_bytes)
-                serving.plan_step("reduce_scatterv", [int(v) for v in n],
-                                  row_bytes=row_bytes)
-                serving.prefetch()     # off the hot path: next classes
-            tr = obs_trace.current()
-            if tr is not None:
-                tr.add_complete("serve/decode_step", "serving", t_step,
-                                time.perf_counter() - t_step, step=step_id,
-                                batch=b)
-            tokens_out += b
-            step_id += 1
-        got = torch.cat(picked, dim=1).cpu().numpy()
-        decode_s.append(time.perf_counter() - t_dec)
-        out.extend(got[i] for i in range(b))
+        with obs_trace.span("serve/batch", "serving", batch=len(prefill_s),
+                            B=b, plen=plen,
+                            requests=list(range(len(out), len(out) + b))):
+            toks = np.zeros((b, plen), np.int32)
+            for i, p in enumerate(prompts):
+                toks[i, plen - len(p):] = p   # left-pad (simple alignment)
+            cache = init_cache(cfg, b, plen + gen, device)
+            t_pre = time.perf_counter()
+            with obs_trace.span("serve/prefill", "serving"):
+                logits, cache = prefill(
+                    params, {"tokens": torch.from_numpy(toks).to(device)},
+                    cache)
+                cur = torch.argmax(logits[:, -1], dim=-1)[:, None].to(
+                    torch.int32)
+                _sync(device)
+            t_dec = time.perf_counter()
+            prefill_s.append(t_dec - t_pre)
+            picked = [cur]
+            for _ in range(gen):
+                with obs_trace.span("serve/decode_step", "serving",
+                                    step=step_id):
+                    logits, cache = decode(params, cache, {"tokens": cur})
+                    cur = torch.argmax(logits[:, -1], dim=-1)[:, None].to(
+                        torch.int32)
+                picked.append(cur)
+                if serving is not None:
+                    S, n = route_step(cur.cpu().numpy(), experts, top_k,
+                                      step_id)
+                    serving.plan_step("alltoallv", S, row_bytes=row_bytes)
+                    serving.plan_step("reduce_scatterv", [int(v) for v in n],
+                                      row_bytes=row_bytes)
+                    serving.prefetch()     # off the hot path: next classes
+                tokens_out += b
+                step_id += 1
+            got = torch.cat(picked, dim=1).cpu().numpy()
+            decode_s.append(time.perf_counter() - t_dec)
+            out.extend(got[i] for i in range(b))
     return {"tokens": out, "prefill_s": prefill_s, "decode_s": decode_s,
             "tokens_out": tokens_out, "wall_s": time.perf_counter() - t0}
 

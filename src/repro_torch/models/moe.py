@@ -39,6 +39,7 @@ from ..core.dtensor import (batch_sharded, from_shards, full, groups_of,
 from ..core.mesh import resolve_device
 from ..kernels.backend import needs_grad
 from ..kernels.ragged_gather import ops, ref
+from ..obs import trace as obs_trace
 from .layers import init_mlp, mlp, trunc_normal
 
 
@@ -182,7 +183,15 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig,
 
     ``aux`` holds ``load`` (each expert's token count, the ragged sizes
     the collectives consume), the Switch-style ``balance_loss`` and
-    ``dropped`` (pairs cut by the capacity)."""
+    ``dropped`` (pairs cut by the capacity).
+
+    With tracing on (``obs.trace``), the spans ``moe/route`` (the router
+    product and :func:`route`), ``moe/dispatch``, ``moe/experts`` (the
+    expert products), ``moe/combine`` and a second ``moe/experts`` (the
+    shared MLP, where the layer has one), and the counts
+    ``moe_pairs_routed`` (``G * Tl * K``, a host int) and
+    ``moe_pairs_dropped`` (``aux["dropped"]``, read on the host only when
+    the outermost span closes).  The mesh path records neither."""
     B, S, D = x.shape
     G = cfg.dispatch_groups
     if B % G:
@@ -192,17 +201,32 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig,
     E, K = cfg.n_experts, cfg.top_k
     Tl = (B // G) * S
     xg = x.reshape(G, Tl, D)
-    logits = torch.matmul(xg.float(), p["router"].float())   # (G, Tl, E)
-    C = capacity if capacity is not None else capacity_for(cfg, Tl)
-    r = route(logits, K, C)
-    out = combine(experts(p, dispatch(xg, r)), r)
+    with obs_trace.span("moe/route"):
+        logits = torch.matmul(xg.float(), p["router"].float())  # (G,Tl,E)
+        C = capacity if capacity is not None else capacity_for(cfg, Tl)
+        r = route(logits, K, C)
+    # each buffer is let go where ``combine(experts(p, dispatch(xg, r)),
+    # r)`` would let it go, so the spans add nothing to the peak memory
+    with obs_trace.span("moe/dispatch"):
+        xe = dispatch(xg, r)
+    with obs_trace.span("moe/experts"):
+        ye = experts(p, xe)
+        del xe
+    with obs_trace.span("moe/combine"):
+        out = combine(ye, r)
+        del ye
     if cfg.n_shared:
-        out = out + mlp(p["shared"], xg)
+        with obs_trace.span("moe/experts"):
+            out = out + mlp(p["shared"], xg)
     load = r.counts.sum(0)
     me = torch.softmax(logits, -1).reshape(G * Tl, E).mean(0)
     ce = load.float() / max(1, G * Tl * K)
     aux = {"load": load, "balance_loss": E * torch.sum(me * ce),
            "dropped": torch.sum(~r.keep)}
+    tr = obs_trace.current()
+    if tr is not None:
+        tr.count("moe_pairs_routed", G * Tl * K)
+        tr.count("moe_pairs_dropped", aux["dropped"])
     return out.reshape(B, S, D).to(x.dtype), aux
 
 

@@ -34,6 +34,7 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..core.dtensor import laid_like, on_mesh
 from ..core.mesh import resolve_device
+from ..obs import trace as obs_trace
 from . import attention as attn
 from . import recurrent as rec
 from .act_sharding import gather_sequence, residual_constraint, unshard_fsdp
@@ -127,7 +128,9 @@ def _apply_block(p: dict, kind: str, cfg: ArchConfig, x: torch.Tensor, *,
     """Returns ``(x, new_cache, aux_loss)``; ``aux_loss`` is None for a
     block without one (the reference's zero), which saves a decode step
     two launches a layer.  ``img`` ``(B, n_img_tokens, d_model)``: the
-    image embeddings a ``cross`` block attends to."""
+    image embeddings a ``cross`` block attends to.  With tracing on
+    (``obs.trace``), the spans ``model/attention`` (the self-attention
+    call) and ``model/moe`` (:func:`~.moe.moe_apply`)."""
     _check_kind(kind)
     aux = None
     x = gather_sequence(x)
@@ -154,14 +157,15 @@ def _apply_block(p: dict, kind: str, cfg: ArchConfig, x: torch.Tensor, *,
     window = cfg.local_window if kind == "local" else cfg.window
     kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
               head_dim=cfg.hd, rope_theta=cfg.rope_theta, window=window)
-    if mode == "decode":
-        a, kv = attn.attention_decode(p["attn"], h, cache["kv"], **kw)
-        new_cache = dict(cache, kv=kv)
-    elif mode == "prefill":
-        a, kv = attn.attention(p["attn"], h, cache=cache["kv"], **kw)
-        new_cache = dict(cache, kv=kv)
-    else:
-        a = attn.attention(p["attn"], h, **kw)
+    with obs_trace.span("model/attention"):
+        if mode == "decode":
+            a, kv = attn.attention_decode(p["attn"], h, cache["kv"], **kw)
+            new_cache = dict(cache, kv=kv)
+        elif mode == "prefill":
+            a, kv = attn.attention(p["attn"], h, cache=cache["kv"], **kw)
+            new_cache = dict(cache, kv=kv)
+        else:
+            a = attn.attention(p["attn"], h, **kw)
     x = x + a
     if kind == "cross":
         if img is None:
@@ -173,7 +177,8 @@ def _apply_block(p: dict, kind: str, cfg: ArchConfig, x: torch.Tensor, *,
                                      head_dim=cfg.hd)
     h2 = rmsnorm(p["norm2"], x)
     if kind == "moe":
-        f, moe_aux = moe_apply(p["ffn"], h2, cfg.moe)
+        with obs_trace.span("model/moe"):
+            f, moe_aux = moe_apply(p["ffn"], h2, cfg.moe)
         aux = moe_aux["balance_loss"]
     else:
         f = mlp(p["ffn"], h2, cfg.act)

@@ -8,13 +8,29 @@ consumer (``chrome://tracing``, Perfetto) opens directly.
 
 * **Tracing off is a no-op path.**  Callers fetch the active recorder
   once (``rec = trace.current()``) and skip all span construction when
-  it is ``None``: one module attribute read and a branch.
+  it is ``None``: one module attribute read and a branch (:func:`span`
+  returns a shared no-op context then).
 * **Tracing on is cheap.**  A span is two ``perf_counter`` reads and one
   list append; no string formatting until export.  The recorder keeps
   the FIRST ``max_events`` spans and counts the rest in ``dropped`` as
   they arrive, so its memory stays bounded.
-* **No dependencies** beyond the port's own cost model, imported by
-  :func:`stage_breakdown` alone.
+* **No dependencies** beyond ``torch`` and the port's own cost model,
+  imported by :func:`stage_breakdown` alone.
+
+Beyond the reference, for the serving path (``launch/serve.py`` lists
+its spans and counts):
+
+* **A span tree.**  A span opened with :meth:`TraceRecorder.span`, or
+  recorded with :meth:`~TraceRecorder.add_complete`, gets an ``id`` and
+  the ``parent`` id of the span open around it (a stack the recorder
+  keeps: the instrumented paths are single-threaded).
+* **The profiler's clock.**  While ``torch.profiler`` records, each
+  :meth:`~TraceRecorder.span` also opens a ``record_function`` range of
+  its name, so the profiler stamps the span beside the device work it
+  launches.
+* **Counts attached to spans.**  :meth:`TraceRecorder.count` adds to the
+  innermost open span's ``args``; a device tensor's value is read once,
+  when the outermost span closes.
 
 The module-level recorder is controlled by :func:`enable` /
 :func:`disable`.  ``REPRO_TORCH_TRACE=1`` (anything non-empty except
@@ -22,10 +38,13 @@ The module-level recorder is controlled by :func:`enable` /
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
 from dataclasses import dataclass, field
+
+import torch
 
 
 @dataclass
@@ -34,7 +53,8 @@ class Span:
 
     ``ts``/``dur`` are SECONDS on the recorder's clock (converted to the
     Chrome-trace microsecond scale only at export); ``args`` is the
-    span's payload.
+    span's payload, counts included.  ``id`` is unique in its recorder;
+    ``parent`` is the ``id`` of the span it was opened in, or ``None``.
     """
 
     name: str
@@ -44,17 +64,20 @@ class Span:
     args: dict = field(default_factory=dict)
     tid: int = 0
     ph: str = "X"                  # complete event; "i" = instant
+    id: int = 0
+    parent: int | None = None
 
 
 class _SpanHandle:
     """Context manager returned by :meth:`TraceRecorder.span`."""
 
-    __slots__ = ("_rec", "_span", "_t0")
+    __slots__ = ("_rec", "_span", "_t0", "_range")
 
     def __init__(self, rec: "TraceRecorder", span: Span):
         self._rec = rec
         self._span = span
         self._t0 = 0.0
+        self._range = None
 
     @property
     def args(self) -> dict:
@@ -62,14 +85,31 @@ class _SpanHandle:
         return self._span.args
 
     def __enter__(self) -> "_SpanHandle":
-        self._t0 = self._rec._clock()
+        rec, sp = self._rec, self._span
+        sp.id = rec._next_id = rec._next_id + 1
+        if rec._stack:
+            sp.parent = rec._stack[-1].id
+        rec._stack.append(sp)
+        # the clock is read outside the profiler's range, so the span
+        # holds it (a range's first open takes about a millisecond)
+        self._t0 = rec._clock()
+        if torch.autograd._profiler_enabled():
+            self._range = torch.autograd.profiler.record_function(sp.name)
+            self._range.__enter__()
         return self
 
     def __exit__(self, *exc) -> None:
-        t1 = self._rec._clock()
+        rec = self._rec
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        t1 = rec._clock()
         self._span.ts = self._t0
         self._span.dur = t1 - self._t0
-        self._rec._append(self._span)
+        rec._stack.pop()
+        rec._append(self._span)
+        if not rec._stack and rec._pending:
+            rec._read_counts()
 
 
 class TraceRecorder:
@@ -90,6 +130,11 @@ class TraceRecorder:
         self._events: list[Span] = []
         self.dropped = 0
         self._t_origin = clock()
+        self._next_id = 0
+        self._stack: list[Span] = []       # the spans open, outermost first
+        # device counts not yet read, by (span id, name): (span, name,
+        # 0-d tensor)
+        self._pending: dict[tuple, tuple] = {}
 
     # ------------------------------------------------------------ recording
 
@@ -100,17 +145,62 @@ class TraceRecorder:
             self._events.append(span)
 
     def span(self, name: str, cat: str = "", **args) -> _SpanHandle:
-        """``with rec.span("exec/gatherv", cat="collective", p=8): ...``"""
+        """``with rec.span("exec/gatherv", cat="collective", p=8): ...``
+
+        The span's ``parent`` is the innermost span open when it enters.
+        While ``torch.profiler`` records, the span is also a
+        ``record_function`` range of ``name``."""
         return _SpanHandle(self, Span(name, cat, 0.0, 0.0, args))
 
     def add_complete(self, name: str, cat: str, ts: float, dur: float,
                      tid: int = 0, **args) -> None:
-        """Record an externally timed span (``ts``/``dur`` in seconds)."""
-        self._append(Span(name, cat, ts, dur, args, tid=tid))
+        """Record an externally timed span (``ts``/``dur`` in seconds),
+        under the innermost span open now."""
+        self._next_id += 1
+        outer = self.innermost
+        self._append(Span(name, cat, ts, dur, args, tid=tid,
+                          id=self._next_id,
+                          parent=outer.id if outer is not None else None))
+
+    def count(self, name: str, value) -> None:
+        """Add ``value`` (a host int or a 0-d tensor) to the count ``name``
+        of the innermost open span (its ``args[name]``); with no span open
+        the count has no span to go to and is left unread.
+
+        A tensor's value is not read here: it is kept, folded into any
+        earlier value of the same span and name (one add on its device),
+        and read in one copy a device with every other kept value when
+        the outermost open span closes.  So counting on the device adds
+        no host sync inside a span."""
+        span = self.innermost
+        if span is None:
+            return
+        if not isinstance(value, torch.Tensor):
+            span.args[name] = span.args.get(name, 0) + value
+            return
+        key = (span.id, name)
+        kept = self._pending.get(key)
+        self._pending[key] = (span, name, value if kept is None
+                              else kept[2] + value)
+
+    def _read_counts(self) -> None:
+        kept, self._pending = self._pending, {}
+        by_device: dict = {}
+        for k in kept.values():
+            by_device.setdefault(k[2].device, []).append(k)
+        for group in by_device.values():
+            values = torch.stack([t.reshape(()) for _, _, t in group])
+            for (span, name, _), v in zip(group, values.tolist()):
+                span.args[name] = span.args.get(name, 0) + v
 
     def instant(self, name: str, cat: str = "", **args) -> None:
         """Zero-duration marker (drift fired, epoch bumped, ...)."""
         self._append(Span(name, cat, self._clock(), 0.0, args, ph="i"))
+
+    @property
+    def innermost(self) -> Span | None:
+        """The innermost span open now (``None`` where none is)."""
+        return self._stack[-1] if self._stack else None
 
     @property
     def events(self) -> list[Span]:
@@ -154,14 +244,22 @@ class TraceRecorder:
         Timestamps are microseconds relative to the recorder's creation,
         ``ph="X"`` complete events (``ph="i"`` instants carry ``s="g"``
         global scope) — the exact shape ``chrome://tracing`` and
-        Perfetto ingest without conversion.
+        Perfetto ingest without conversion.  A span in a tree carries its
+        ``span_id`` and, under a parent, its ``parent_id`` in ``args``; a
+        span outside any tree exports as the reference's.
         """
+        parents = {s.parent for s in self._events if s.parent is not None}
         events = []
         for s in self._events:
+            args = _jsonable(s.args)
+            if s.parent is not None or s.id in parents:
+                args["span_id"] = s.id
+                if s.parent is not None:
+                    args["parent_id"] = s.parent
             ev = {"name": s.name, "cat": s.cat or "default", "ph": s.ph,
                   "ts": (s.ts - self._t_origin) * 1e6,
                   "pid": pid, "tid": s.tid,
-                  "args": _jsonable(s.args)}
+                  "args": args}
             if s.ph == "X":
                 ev["dur"] = s.dur * 1e6
             else:
@@ -230,6 +328,16 @@ def current() -> TraceRecorder | None:
     """The active recorder, or ``None`` when tracing is off — call sites
     fetch this ONCE and branch, keeping the off path a no-op."""
     return _RECORDER
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, cat: str = "", **args):
+    """``with trace.span("model/moe"): ...``: a span of the active
+    recorder, or a shared no-op context when tracing is off."""
+    rec = _RECORDER
+    return _OFF if rec is None else rec.span(name, cat, **args)
 
 
 def plan_link_bytes(steps, topology=None, row_bytes: int = 1) -> dict:
