@@ -159,7 +159,7 @@ def _input_rows(kind: str, plan) -> int:
     return plan.cap
 
 
-def _end_failed_capture(dev: torch.device, graph, pool) -> None:
+def end_failed_capture(dev: torch.device, graph, pool) -> None:
     """Ends a capture whose body raised.  ``CUDAGraph.capture_end`` then
     raises (the capture is invalidated) before it ends the allocator's
     routing to the graph's pool ``pool``; left on, the allocator counts a
@@ -261,7 +261,7 @@ class _Executor:
                 try:
                     out = self._body()
                 except BaseException:
-                    _end_failed_capture(dev, graph, pool)
+                    end_failed_capture(dev, graph, pool)
                     raise
                 graph.capture_end()
         finally:
