@@ -42,8 +42,9 @@ def readings(cell: spec.Cell, seed: int, batches: int, control: bool,
     parts = [judge.served_gaps(params, cell.spec, served[i].prompts,
                                served[i].tokens, device, mms)
              for i in picked]
-    got = [judge.stats(torch.cat([p[k].flatten() for p in parts]))
+    cat = [torch.cat([p[k].flatten() for p in parts])
            for k in range(len(mms) + 1)]
+    got = [judge.stats(g, cat[1]) for g in cat]
     return {"seed": seed, "tokens": int(parts[0][0].numel() * len(parts)),
             "served": got[0], "bf16_reference": got[1],
             "control": got[2] if control else None,

@@ -5,10 +5,11 @@ produced it.
 With random weights the largest logit changes on rounding, so a served
 token is not required to be the reference's best.  Each token's gap is
 how far its reference logit lies below the reference's best logit at its
-position; a cell compares the widest or the mean gap (:func:`stats`) over
-every token of a sample of whole served batches (the batch holding the
-longest prompt, and others drawn from the seed).  A batch is judged whole
-because the MoE layer's capacity cut couples its rows.
+position; a cell compares the widest or the mean gap, or the mean above
+the seed's own rounding floor (:func:`stats`), over every token of a
+sample of whole served batches (the batch holding the longest prompt, and
+others drawn from the seed).  A batch is judged whole because the MoE
+layer's capacity cut couples its rows.
 
 The control puts the reference in the program's place at the precision
 below the configuration's (fp8 products, ``reference.model.fp8_matmul``)
@@ -54,12 +55,22 @@ def gaps(ref_logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
             - ref_logits.gather(-1, tokens[..., None]).squeeze(-1))
 
 
-def stats(g: torch.Tensor) -> dict:
+EXCESS = "logit_gap_mean_excess"
+
+
+def stats(g: torch.Tensor, floor: torch.Tensor | None = None) -> dict:
     """The numbers a cell may compare, of the gaps ``g`` of its sample:
-    ``logit_gap_max`` (the widest) and ``logit_gap_mean``."""
+    ``logit_gap_max`` (the widest) and ``logit_gap_mean``; given
+    ``floor``, the gaps at the same positions of the tokens that the
+    reference at the configuration's own precision puts first
+    (``reference.model.bf16_matmul``), also ``logit_gap_mean_excess``,
+    the mean above theirs.  Served tokens that pass many near ties read a
+    high mean at any precision; the excess leaves that floor out."""
     g = g.double().flatten()
-    return {"logit_gap_max": float(g.max()),
-            "logit_gap_mean": float(g.mean())}
+    out = {"logit_gap_max": float(g.max()), "logit_gap_mean": float(g.mean())}
+    if floor is not None:
+        out[EXCESS] = out["logit_gap_mean"] - float(floor.double().mean())
+    return out
 
 
 def served_gaps(params: dict, spec, prompts: list, served: list, device,

@@ -33,7 +33,7 @@ T_START = time.perf_counter()
 import argparse  # noqa: E402
 import json  # noqa: E402
 import sys  # noqa: E402
-from dataclasses import dataclass, field  # noqa: E402
+from dataclasses import dataclass, field, fields, replace  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 _ROOT = Path(__file__).resolve().parents[1]
@@ -43,6 +43,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from bench import devtrace, judge, spec, traffic, weights  # noqa: E402
+from bench.reference import model as ref  # noqa: E402
 
 T_IMPORTED = time.perf_counter()
 
@@ -89,7 +90,9 @@ def forbidden_modules() -> list[str]:
 
 def program_config(model: dict):
     """The program's ``ArchConfig`` of a configuration file, refused where
-    the file asks for what the program cannot run."""
+    the file asks for what the program cannot run.  The file's
+    ``program`` (fields of ``ArchConfig``, a nested ``moe`` of
+    ``MoEConfig``'s) is applied over what the sizes give."""
     from repro_torch.configs.base import ArchConfig, MoEConfig
 
     if (model.get("hidden_act") != "silu" or float(model["rms_norm_eps"])
@@ -105,14 +108,30 @@ def program_config(model: dict):
                         first_dense=model["first_k_dense_replace"],
                         capacity_factor=float(model["capacity_factor"]),
                         d_ff=model["moe_intermediate_size"])
-    return ArchConfig(
+    cfg = ArchConfig(
         name=model["name"], n_layers=model["num_hidden_layers"],
         d_model=model["hidden_size"], n_heads=model["num_attention_heads"],
         n_kv_heads=model["num_key_value_heads"],
         d_ff=model["intermediate_size"], vocab=model["vocab_size"],
         pattern=("moe",) if moe else ("dense",), moe=moe,
-        rope_theta=float(model["rope_theta"]), head_dim=model["head_dim"],
-        dtype=model["torch_dtype"])
+        rope_theta=float(model["rope_theta"]),
+        head_dim=model.get("head_dim"), dtype=model["torch_dtype"])
+    over = dict(model.get("program", {}))
+    if "moe" in over:
+        given = over.pop("moe")
+        _known(MoEConfig, given, f"{model['name']}: program.moe")
+        over["moe"] = replace(cfg.moe, **given) if cfg.moe \
+            else MoEConfig(**given)
+    _known(ArchConfig, over, f"{model['name']}: program")
+    return cfg.with_(**{k: tuple(v) if isinstance(v, list) else v
+                        for k, v in over.items()})
+
+
+def _known(cls, given: dict, where: str) -> None:
+    unknown = sorted(set(given) - {f.name for f in fields(cls)})
+    if unknown:
+        raise ValueError(f"{where}: {cls.__name__} has no field "
+                         f"{', '.join(map(repr, unknown))}")
 
 
 def serve(params, cfg, mix: traffic.Mix, prompts: list, device) -> Batch:
@@ -220,10 +239,13 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     memory_peak = max(warm_peak, run.peak_bytes) if on_card else 0
 
     picked = judge.pick(served, int(cell.settings["check_batches"]), seed)
-    got = judge.stats(torch.cat([
-        judge.served_gaps(params, cell.spec, served[i].prompts,
-                          served[i].tokens, device)[0].flatten()
-        for i in picked]))
+    mms = ((ref.bf16_matmul,) if judge.EXCESS in cell.settings["limits"]
+           else ())
+    parts = [judge.served_gaps(params, cell.spec, served[i].prompts,
+                               served[i].tokens, device, mms)
+             for i in picked]
+    got = judge.stats(*(torch.cat([p[k].flatten() for p in parts])
+                        for k in range(len(mms) + 1)))
     n_failed = sum(failed(b, mix, V) for b in served)
     checks = {name: {"value": got[name], "limit": float(limit)}
               for name, limit in cell.settings["limits"].items()}

@@ -1,6 +1,7 @@
 """Small cells for the CPU tests: the two configurations' shapes (MoE with
-a dense first layer and shared experts; dense GQA) at a few hundred
-thousand parameters, served a few short batches."""
+a dense first layer and shared experts; dense GQA) and dense GQA over a
+sliding window, at a few hundred thousand parameters, served a few short
+batches."""
 from __future__ import annotations
 
 import sys
@@ -22,12 +23,19 @@ MOE = {"name": "tiny-moe", "hidden_size": 64, "num_hidden_layers": 3,
        "vocab_size": 256, "rope_theta": 10000.0, "rms_norm_eps": 1e-6,
        "hidden_act": "silu", "norm_topk_prob": True,
        "tie_word_embeddings": True, "torch_dtype": "bfloat16",
-       "capacity_factor": 1.0}
+       "capacity_factor": 1.0,
+       "blocks": {"dense": ["gqa", "swiglu"], "moe": ["gqa", "deepseek_moe"]}}
 DENSE = {"name": "tiny-dense", "hidden_size": 64, "num_hidden_layers": 3,
          "num_attention_heads": 8, "num_key_value_heads": 2, "head_dim": 16,
          "intermediate_size": 128, "vocab_size": 256, "rope_theta": 5e6,
          "rms_norm_eps": 1e-6, "hidden_act": "silu",
-         "tie_word_embeddings": True, "torch_dtype": "bfloat16"}
+         "tie_word_embeddings": True, "torch_dtype": "bfloat16",
+         "blocks": {"dense": ["gqa", "swiglu"]}}
+# dense GQA over a sliding window of 8, shorter than the prompts: the
+# block kind ``gqa_window`` for the reference, ``window`` for the program
+WINDOW = dict(DENSE, name="tiny-window", sliding_window=8,
+              program={"window": 8},
+              blocks={"dense": ["gqa_window", "swiglu"]})
 MIX = traffic.Mix(batch=3, prompt_min=5, prompt_max=24, dist="log_uniform",
                   output_tokens=5)
 SETTINGS = {"check_batches": 2, "trace_batches": 1}

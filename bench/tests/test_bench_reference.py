@@ -18,11 +18,15 @@ import cells
 from bench import run, traffic, weights
 from bench.reference import model as ref
 from bench.reference import spec as model_spec
+from bench.reference.kinds import deepseek_moe
 
 from repro_torch.models.transformer import init_cache, init_params
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 
 GEN = 6
+# a layer pattern of period 2 over 3 layers: one body period and a tail
+PERIOD2 = dict(cells.DENSE, name="tiny-period2",
+               program={"pattern": ["dense", "dense"]})
 
 
 def _program_logits(model: dict, params: dict, prompts: list):
@@ -47,8 +51,8 @@ def _program_logits(model: dict, params: dict, prompts: list):
     return torch.stack(out, 1), tokens, plen
 
 
-@pytest.mark.parametrize("model", [cells.MOE, cells.DENSE],
-                         ids=["moe", "dense"])
+@pytest.mark.parametrize("model", [cells.MOE, cells.DENSE, PERIOD2],
+                         ids=["moe", "dense", "period2"])
 @pytest.mark.parametrize("seed", [3, 2**31 + 11])
 def test_reference_follows_the_program_in_float32(model, seed, monkeypatch):
     """Prefill of left-padded prompts, then decode through the cache: the
@@ -60,13 +64,13 @@ def test_reference_follows_the_program_in_float32(model, seed, monkeypatch):
     prompts = traffic.batch(cells.MIX, spec.vocab, seed, 0)
     got, tokens, plen = _program_logits(model, params, prompts)
     kept = []
-    route = ref.route
+    route = deepseek_moe.route
 
     def spy(*a):
         out = route(*a)
         kept.append(out[2])
         return out
-    monkeypatch.setattr(ref, "route", spy)
+    monkeypatch.setattr(deepseek_moe, "route", spy)
     want = ref.served_logits(params, spec, tokens, plen)
     assert got.shape == want.shape == (len(prompts), GEN + 1, spec.vocab)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
@@ -82,14 +86,14 @@ def test_route_keeps_the_first_pairs_of_each_expert():
     # 6 tokens of one group, all to expert 2: capacity int(6 / 4) + 1 = 2
     logits = torch.zeros(6, 4)
     logits[:, 2] = 1.0
-    expert, gate, keep = ref.route(logits, torch.zeros(6, dtype=torch.long),
-                                   [6], spec)
+    expert, gate, keep = deepseek_moe.route(
+        logits, torch.zeros(6, dtype=torch.long), [6], spec)
     assert expert.tolist() == [2] * 6 and gate.tolist() == [1.0] * 6
     assert keep.tolist() == [True, True] + [False] * 4
 
 
 def test_weights_have_the_programs_layout():
-    for model in (cells.MOE, cells.DENSE):
+    for model in (cells.MOE, cells.DENSE, cells.WINDOW, PERIOD2):
         spec = model_spec.from_dict(model)
         cfg = run.program_config(model)
         want = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -154,9 +158,12 @@ def test_a_run_loads_neither_jax_nor_the_jax_package():
 
 
 REFERENCE_PROBE = """
-import sys
+import pathlib, sys
 sys.path[:0] = [{root!r}]
 import bench.reference.model, bench.reference.spec
+from bench.reference import kinds
+for f in sorted(pathlib.Path(kinds.__file__).parent.glob("[!_]*.py")):
+    kinds.load(f.stem)
 print(sorted({{m.split(".")[0] for m in sys.modules}}))
 """
 
@@ -167,7 +174,7 @@ def test_the_reference_loads_nothing_of_the_program():
         capture_output=True, text=True, check=True, timeout=300)
     loaded = set(eval(out.stdout.strip().splitlines()[-1]))
     assert not loaded & {"repro_torch", "repro", "jax", "jaxlib", "flax"}
-    for path in (cells.ROOT / "bench" / "reference").glob("*.py"):
+    for path in (cells.ROOT / "bench" / "reference").rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names]
                      if isinstance(node, ast.Import) else

@@ -7,9 +7,10 @@ import json
 import re
 
 import pytest
+import torch
 
 import cells
-from bench import run, spec
+from bench import judge, run, spec
 
 from repro_torch.configs import get_config
 
@@ -37,12 +38,23 @@ def test_a_cell_resolves_its_files_by_name(cell):
     assert c.chips == 1
     assert c.mix.batch > 0 and c.spec.n_layers > 0
     assert set(c.settings) == {"check_batches", "trace_batches", "limits"}
-    assert set(c.settings["limits"]) <= {"logit_gap_max", "logit_gap_mean"}
+    assert set(c.settings["limits"]) <= set(judge.stats(torch.zeros(1),
+                                                        torch.zeros(1)))
     for m in c.end_to_end + c.per_layer:
         assert callable(spec.reader(m["name"]))
     run.program_config(c.model)         # the program can run the file
     names = {m["name"] for m in c.end_to_end}
     assert "setup_s" in names and len(names) >= 2 and c.per_layer
+
+
+def test_the_judges_numbers():
+    gen = torch.Generator().manual_seed(0)
+    g, floor = torch.rand(8256, generator=gen), torch.rand(8256, generator=gen)
+    want = {"logit_gap_max": g.double().max().item(),
+            "logit_gap_mean": g.double().mean().item()}
+    assert judge.stats(g) == want
+    assert judge.stats(g, floor) == dict(want, logit_gap_mean_excess=(
+        g.double().mean() - floor.double().mean()).item())
 
 
 def test_names_units_and_text():

@@ -11,6 +11,7 @@ import cells
 from bench import run, traffic, weights, work
 from bench.reference import model as ref
 from bench.reference import spec as model_spec
+from bench.reference.kinds import gqa
 
 from repro_torch.kernels.ragged_gather import ops
 from repro_torch.models.moe import moe_apply
@@ -38,7 +39,7 @@ def test_model_flops_are_what_the_reference_computes(model, T):
 
 def test_active_params_count_the_routed_and_shared_experts():
     s = model_spec.from_dict(cells.MOE)
-    attn = work.attention_params(s)
+    attn = gqa.params(s)
     assert attn == 4 * s.d_model * s.n_heads * s.head_dim
     routed = 3 * s.d_model * s.expert_d_ff * s.top_k
     shared = 3 * s.d_model * s.expert_d_ff * s.n_shared

@@ -3,11 +3,12 @@ both the program and the reference.
 
 The layout is the one the program's ``init_params`` gives: ``embed`` /
 ``e`` ``(V, D)``, ``final_norm`` / ``g``, and the layers as ``first``
-(DeepSeek's dense first layer), ``body`` (one list per period, here one
-block each) and ``tail``; each block ``norm1``, ``attn`` (``wq``, ``wk``,
-``wv``, ``wo``), ``norm2`` and ``ffn`` (an MLP's ``wi``, ``wg``, ``wo``,
-or the MoE layer's float32 ``router`` ``(D, E)``, stacked experts ``wi``
-/ ``wg`` ``(E, D, F)`` and ``wo`` ``(E, F, D)`` and ``shared``).
+(DeepSeek's dense first layer), ``body`` (one list per period of the
+layer pattern) and ``tail``; each layer holds, for its ``i``-th block
+kind (``reference/kinds/``), the norm gain ``norm<i + 1>`` and the
+kind's weights under its ``SLOT``, as the kind's ``shapes`` gives them
+(GQA's ``attn``: ``wq``, ``wk``, ``wv``, ``wo``; an MLP's or the MoE
+layer's ``ffn``).
 
 Every product's weight is normal with std ``1 / sqrt(fan-in)``, the
 embedding too, as the tied output head's weight (fan-in ``D``: a logit
@@ -24,36 +25,10 @@ import math
 
 import torch
 
+from .reference import kinds as block_kinds
 from .reference.spec import ModelSpec
 
 ALIGN = 256          # elements: 512 bytes of bf16
-
-
-def _block_shapes(spec: ModelSpec, kind: str) -> dict:
-    """``{path: (shape, fan_in, fp32)}`` of one block's drawn weights."""
-    D, H, Hkv, hd = spec.d_model, spec.n_heads, spec.n_kv_heads, \
-        spec.head_dim
-    out = {("attn", "wq"): ((D, H * hd), D, False),
-           ("attn", "wk"): ((D, Hkv * hd), D, False),
-           ("attn", "wv"): ((D, Hkv * hd), D, False),
-           ("attn", "wo"): ((H * hd, D), H * hd, False)}
-    if kind == "dense":
-        F_ = spec.d_ff
-        out.update({("ffn", "wi"): ((D, F_), D, False),
-                    ("ffn", "wg"): ((D, F_), D, False),
-                    ("ffn", "wo"): ((F_, D), F_, False)})
-        return out
-    E, F_ = spec.n_experts, spec.expert_d_ff
-    out.update({("ffn", "router"): ((D, E), D, True),
-                ("ffn", "wi"): ((E, D, F_), D, False),
-                ("ffn", "wg"): ((E, D, F_), D, False),
-                ("ffn", "wo"): ((E, F_, D), F_, False)})
-    if spec.n_shared:
-        S = F_ * spec.n_shared
-        out.update({("ffn", "shared", "wi"): ((D, S), D, False),
-                    ("ffn", "shared", "wg"): ((D, S), D, False),
-                    ("ffn", "shared", "wo"): ((S, D), S, False)})
-    return out
 
 
 def _put(tree: dict, path: tuple, value) -> None:
@@ -69,11 +44,12 @@ def make(spec: ModelSpec, seed: int, device,
     device = torch.device(device)
     leaves = [(("embed", "e"), (spec.vocab, spec.d_model), spec.d_model,
                False)]
-    kinds = spec.kinds()
-    n_first = spec.first_dense if spec.moe else 0
-    for i, kind in enumerate(kinds):
-        for path, (shape, fan_in, fp32) in _block_shapes(spec, kind).items():
-            leaves.append((("layer", i) + path, shape, fan_in, fp32))
+    layer_kinds = block_kinds.of_layers(spec)
+    for i, layer in enumerate(layer_kinds):
+        for kind in layer:
+            for path, (shape, fan_in, fp32) in kind.shapes(spec).items():
+                leaves.append((("layer", i, kind.SLOT) + path, shape, fan_in,
+                               fp32))
     offsets, total = [], {False: 0, True: 0}
     for _, shape, _, fp32 in leaves:
         offsets.append(total[fp32])
@@ -85,11 +61,10 @@ def make(spec: ModelSpec, seed: int, device,
             for fp32 in (False, True) if total[fp32]}
     tree = {"embed": {}, "final_norm": {
         "g": torch.ones(spec.d_model, dtype=dtype, device=device)}}
-    layers = [{"norm1": {"g": torch.ones(spec.d_model, dtype=dtype,
-                                         device=device)},
-               "norm2": {"g": torch.ones(spec.d_model, dtype=dtype,
-                                         device=device)}}
-              for _ in kinds]
+    layers = [{f"norm{j + 1}": {"g": torch.ones(spec.d_model, dtype=dtype,
+                                                device=device)}
+               for j in range(len(layer))}
+              for layer in layer_kinds]
     for (path, shape, fan_in, fp32), off in zip(leaves, offsets):
         t = flat[fp32][off: off + math.prod(shape)].view(shape)
         t.mul_(1.0 / math.sqrt(fan_in))
@@ -97,7 +72,13 @@ def make(spec: ModelSpec, seed: int, device,
             _put(layers[path[1]], path[2:], t)
         else:
             _put(tree, path, t)
+    # grouped as the program's layer plan: the leading dense layers, the
+    # body's periods, the tail
+    n_first = spec.first_dense if spec.moe else 0
+    period = len(spec.pattern)
+    n_body = (spec.n_layers - n_first) // period * period
     tree["first"] = layers[:n_first]
-    tree["body"] = [[b] for b in layers[n_first:]]
-    tree["tail"] = []
+    tree["body"] = [layers[i: i + period]
+                    for i in range(n_first, n_first + n_body, period)]
+    tree["tail"] = layers[n_first + n_body:]
     return tree

@@ -5,6 +5,7 @@ Peaks: NVIDIA H100 SXM data sheet, dense rates at the 700 W limit.
 """
 from __future__ import annotations
 
+from .reference import kinds
 from .reference.spec import ModelSpec
 
 PEAK_BF16_FLOPS = 989e12
@@ -13,31 +14,29 @@ BF16_BYTES = 2
 INDEX_BYTES = 4            # K6's int32 row indices
 
 
-def attention_params(spec: ModelSpec) -> int:
-    d, H, Hkv, hd = spec.d_model, spec.n_heads, spec.n_kv_heads, \
-        spec.head_dim
-    return d * H * hd + 2 * d * Hkv * hd + H * hd * d
-
-
 def active_params(spec: ModelSpec) -> int:
-    """The non-embedding parameters one token uses: every layer's
-    attention, the dense layers' MLPs, and in an MoE layer the router,
-    ``top_k`` routed experts and the shared experts."""
-    d = spec.d_model
-    total = 0
-    for kind in spec.kinds():
-        total += attention_params(spec)
-        if kind == "dense":
-            total += 3 * d * spec.d_ff
-        else:
-            total += d * spec.n_experts + 3 * d * spec.expert_d_ff * (
-                spec.top_k + spec.n_shared)
-    return total
+    """The non-embedding parameters one token uses: every layer's block
+    kinds' (``kind.params``; in an MoE layer the router, ``top_k`` routed
+    experts and the shared experts)."""
+    return sum(kind.params(spec) for layer in kinds.of_layers(spec)
+               for kind in layer)
 
 
 def attention_flops(spec: ModelSpec, pairs: int) -> int:
-    """Two products over ``pairs`` (query, key) pairs in every layer."""
-    return 4 * spec.head_dim * spec.n_heads * pairs * spec.n_layers
+    """``pairs`` (query, key) pairs in every layer, at each of its kinds'
+    FLOPs a pair."""
+    return sum(kind.pair_flops(spec) * pairs
+               for layer in kinds.of_layers(spec) for kind in layer)
+
+
+def visible_flops(spec: ModelSpec, n: int) -> int:
+    """The attention's FLOPs over one sequence of ``n`` tokens: each
+    layer's kinds' FLOPs a pair times their visible pairs (``kind.pairs``,
+    causal where a kind gives none)."""
+    return sum(kind.pair_flops(spec)
+               * getattr(kind, "pairs", lambda _, m: causal_pairs(m))(
+                   spec, n)
+               for layer in kinds.of_layers(spec) for kind in layer)
 
 
 def unembed_flops(spec: ModelSpec, rows: int) -> int:
@@ -51,26 +50,26 @@ def causal_pairs(n: int) -> int:
 
 def request_flops(spec: ModelSpec, prompt: int, steps: int) -> int:
     """Model FLOPs of one request as the user sees it: its ``prompt``
-    tokens and the ``steps`` served tokens fed back, unpadded; causal
+    tokens and the ``steps`` served tokens fed back, unpadded; the
     attention over its own tokens; the unembedding of the ``steps + 1``
     positions that give a token."""
     n = prompt + steps
-    return (2 * active_params(spec) * n
-            + attention_flops(spec, causal_pairs(n))
+    return (2 * active_params(spec) * n + visible_flops(spec, n)
             + unembed_flops(spec, steps + 1))
 
 
 def k8_flops(spec: ModelSpec, batch: int, t: int) -> int:
-    """K8's work in one prefill of ``batch`` rows padded to ``t``: causal
+    """K8's work in one prefill of ``batch`` rows padded to ``t``: the
     attention at every layer."""
-    return attention_flops(spec, batch * causal_pairs(t))
+    return batch * visible_flops(spec, t)
 
 
 def k8_bytes(spec: ModelSpec, batch: int, t: int) -> int:
-    """q, k, v read once and the output written once, every layer."""
-    H, Hkv, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
-    return (batch * t * (2 * H + 2 * Hkv) * hd * BF16_BYTES
-            * spec.n_layers)
+    """q, k, v read once and the output written once, every layer
+    (``kind.attn_bytes``)."""
+    return sum(kind.attn_bytes(spec, batch * t)
+               for layer in kinds.of_layers(spec) for kind in layer
+               if hasattr(kind, "attn_bytes"))
 
 
 def _gather_bytes(rows_out: int, rows_in: int, d: int) -> int:
@@ -92,7 +91,7 @@ def k6_bytes(spec: ModelSpec, tokens: int) -> int:
     pairs = tokens * spec.top_k
     per_layer = (_gather_bytes(ec, tokens + 1, spec.d_model)
                  + _gather_bytes(pairs, ec, spec.d_model))
-    return per_layer * (spec.n_layers - spec.first_dense)
+    return per_layer * spec.kinds().count("moe")
 
 
 def roofline_pct(flops: float, nbytes: float, seconds: float) -> float:
